@@ -1,0 +1,813 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port of SkewRoute on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py                  # the whole run, one CUDA device
+    python3 chip_smoke.py --kernels-only   # build + kernel-vs-plain checks
+
+Needs a CUDA device and ``nvcc`` (the kernels are built from
+``src/repro_torch/kernels/csrc`` at the start). Imports nothing of JAX
+and nothing of the JAX package. Phases, each fatal on failure:
+
+1. device   — the card (``nvidia-smi``), torch/CUDA versions, kernel build.
+2. kernels  — every CUDA kernel against its plain PyTorch version on the
+              card, at the main path's shapes and the edge cases.
+3. server   — the main path, through the user's entry points: a session
+              built from a ``RouteSpec`` JSON answers request batches at
+              the KGQA serving width (Dt=110, H=128) and the paper-scale
+              scorer width (Dt=1156, H=1024); results are held against
+              the ``oracle`` backend on the card and the host-staged
+              reference on the CPU; a snapshot restores into a fresh
+              session. Kernel launches are counted over this phase only.
+4. times    — CUDA-event times of every kernel beside its plain version,
+              a library call where one exists, and its bound; end-to-end
+              ``route_retrieved`` times for ``fused`` and ``oracle``.
+
+The second-to-last line is ``nvidia-smi``'s name and power limit, the
+line before it lists the kernels as JSON, and the last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+
+# NVIDIA H100 SXM data sheet (dense, at the 700 W limit): device memory
+# bandwidth and fp32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOP_PER_S = 67e12
+
+# Kernel vs plain version, same inputs, same card:
+SKEW_TOL = dict(atol=1e-5, rtol=1e-5)        # reference's skew-metric bar
+SCORE_TOL = dict(atol=1e-5, rtol=1e-5)       # reference's scorer bar (Dt~110)
+# Dt=1156, H=1024: each score is a 1024-term sum of relu'd 1156-term fp32
+# sums, taken in another order than cuBLAS takes them; the rounding that
+# leaves is ~sqrt(terms) ulps of the partial sums (~1e-6 at these
+# magnitudes), so 5e-5 absolute is headroom, not slack.
+SCORE_TOL_WIDE = dict(atol=5e-5, rtol=1e-5)
+# Whole path vs whole path (fused kernels vs oracle on the card, vs the
+# staged path on the CPU): the candidate logits come from different fp32
+# summation orders (~1e-6 apart), and min-max normalisation divides by the
+# row's score range, which can amplify that tenfold in the area metric.
+# For the same reason cumulative-k may move by one in a row whose CDF lies
+# within rounding of P; such rows are counted and printed (the exact
+# check of that column is kernel vs plain version, on the same inputs).
+E2E_TOL = dict(atol=1e-4, rtol=1e-4)
+TINY = 5.6406751573846435e-34   # the reference's near-zero-total example
+
+# The paper-scale scorer width (src/repro/kernels/triple_score/kernel.py:
+# 17-18, benchmarks/kernel_bench.py:75-76) at B=256, N=512. The repo names
+# no query width at this scale; Dq only sizes the bias product outside the
+# kernel, so ScorerConfig's d_query of 32 is taken.
+PAPER = dict(b=256, n=512, dt=1156, dq=32, h=1024)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check_close(what: str, got, want, atol: float, rtol: float) -> float:
+    import torch
+    got, want = torch.as_tensor(got).double().cpu(), \
+        torch.as_tensor(want).double().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite values")
+    bad = (got - want).abs() > atol + rtol * want.abs()
+    if bad.any():
+        i = tuple(int(x) for x in bad.nonzero()[0])
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} values outside atol {atol} + rtol "
+            f"{rtol}; first at {i}: {float(got[i])} vs {float(want[i])}")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def check_skew(what: str, got, want, scores, n_valid, p_cdf=0.95) -> float:
+    """Metric columns within SKEW_TOL, cumulative-k exact; a row whose
+    count differs is printed with its CDF around P."""
+    import torch
+    from repro_torch.kernels.skew_metrics.kernel import p_threshold
+    diff = (got[:, 1] != want[:, 1]).nonzero().flatten().tolist()
+    for r in diff[:5]:
+        nv = scores.shape[1] if n_valid is None else int(n_valid[r])
+        nv = min(max(nv, 1), scores.shape[1])
+        s = scores[r, :nv].double()
+        sh = s - min(float(s.min()), 0.0)
+        cdf = torch.cumsum(sh / sh.sum(), 0)
+        j = int(min(want[r, 1], got[r, 1])) - 1
+        log(f"  {what}: row {r} cumulative-k {float(got[r, 1])} vs "
+            f"{float(want[r, 1])}; CDF[{j}:{j + 2}] = "
+            f"{cdf[j:j + 2].tolist()} vs P-eps {p_threshold(p_cdf)}")
+    if diff:
+        raise AssertionError(f"{what}: cumulative-k differs in "
+                             f"{len(diff)} rows")
+    return check_close(what, got, want, **SKEW_TOL)
+
+
+def sync_time(fn, reps: int) -> float:
+    """Median host-clock ms of ``fn()`` ending in a device synchronize."""
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def event_time(fn, iters: int, reps: int = 5, warmup: int = 2) -> float:
+    """Median over ``reps`` of CUDA-event ms per call, over ``iters``
+    back-to-back calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        stop.synchronize()
+        out.append(start.elapsed_time(stop) / iters)
+    return statistics.median(out)
+
+
+def kernel_device_ms(fn, iters: int, kernel: str):
+    """Mean device time (ms) of the kernel whose name contains ``kernel``
+    over ``iters`` calls of ``fn``, from the profiler's CUPTI trace; None
+    when the trace holds no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            total += getattr(e, "device_time_total", 0) or \
+                getattr(e, "cuda_time_total", 0)
+            count += e.count
+    return total / count / 1e3 if count and total else None
+
+
+def device_breakdown(fn, reps: int) -> dict:
+    """Wall ms per call of ``fn`` (ending in a synchronize) under a
+    CUDA-only profiler, the device's busy ms per call (the sum of its
+    kernel, copy and set durations) and so its idle share, and the five
+    largest device activities."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    acts = sorted(((getattr(e, "self_device_time_total", 0) / 1e3 / reps,
+                    e.key) for e in prof.key_averages()), reverse=True)
+    busy = sum(ms for ms, _ in acts)
+    return dict(wall_ms=wall, busy_ms=busy,
+                idle_share=1.0 - busy / wall if busy else None,
+                top=[[name[:60], ms] for ms, name in acts[:5]])
+
+
+# -- inputs -------------------------------------------------------------------
+
+def desc_scores(gen, b: int, k: int, lo: float, hi: float, dev):
+    import torch
+    s = torch.rand(b, k, generator=gen, device=dev) * (hi - lo) + lo
+    return torch.sort(s, dim=1, descending=True).values.contiguous()
+
+
+def ragged(gen, b: int, k: int, dev):
+    import torch
+    nv = torch.randint(0, k + 1, (b,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    nv[:2] = torch.tensor([0, 1], dtype=torch.int32)
+    return nv
+
+
+def paper_params(gen, dt: int, dq: int, h: int, dev) -> dict:
+    """He-initialised scorer weights at an arbitrary width."""
+    import torch
+
+    def normal(*shape, fan_in):
+        return torch.randn(*shape, generator=gen, device=dev) \
+            * (2.0 / fan_in) ** 0.5
+
+    return {"w1_t": normal(dt, h, fan_in=dt), "w1_q": normal(dq, h, fan_in=dq),
+            "b1": torch.zeros(h, device=dev), "w2": normal(h, 1, fan_in=h),
+            "b2": torch.zeros(1, device=dev)}
+
+
+# -- phases -------------------------------------------------------------------
+
+def phase_device(dev) -> dict:
+    import torch
+    from repro_torch.kernels import cuda_build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"phase device: {torch.cuda.get_device_name(dev)} | nvidia-smi: "
+        f"{smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
+        f"python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    log("phase device: TF32 off for matmul and cuDNN (every fp32 product "
+        "here is full fp32)")
+    secs = cuda_build.build_all()
+    log(f"phase device: kernels built and loaded in {secs:.1f} s")
+    for name, text in cuda_build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    return {"smi": smi, "build_s": secs}
+
+
+def phase_kernels(dev, errs: dict) -> None:
+    import torch
+    from repro_torch.kernels.skew_metrics import kernel as sk
+    from repro_torch.kernels.triple_score import kernel as ts
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    cases = []
+    for k in (1, 37, 100, 200):
+        cases.append((f"B=256 K={k} dense", desc_scores(gen, 256, k, 0.01, 1.0,
+                                                        dev), None))
+        cases.append((f"B=256 K={k} ragged logits",
+                      desc_scores(gen, 256, k, -0.5, 1.0, dev),
+                      ragged(gen, 256, k, dev)))
+    cases.append(("B=4096 K=100 ragged", desc_scores(gen, 4096, 100, 0.01,
+                                                     1.0, dev),
+                  ragged(gen, 4096, 100, dev)))
+    for value in (TINY, 0.0, 0.7, -1.3):
+        for k in (2, 100):
+            cases.append((f"constant {value:g} K={k}",
+                          torch.full((3, k), value, device=dev), None))
+    worst = 0.0
+    for what, s, nv in cases:
+        for p_cdf in (0.95, 0.8):
+            e = check_skew(f"skew_metrics {what} P={p_cdf}",
+                           sk.skew_metrics(s, nv, p_cdf),
+                           sk.skew_metrics_plain(s, nv, p_cdf), s, nv, p_cdf)
+            worst = max(worst, e)
+    tiny = sk.skew_metrics(torch.full((1, 2), TINY, device=dev)).cpu()
+    if tiny[0].tolist() != [0.0, 2.0, 0.0, 1.0]:
+        raise AssertionError(f"near-zero total row: {tiny[0].tolist()}, "
+                             f"reference gives [0, 2, 0, 1]")
+    errs["skew_metrics"] = worst
+    log(f"phase kernels: skew_metrics == plain at K in (1, 37, 100, 200), "
+        f"B in (256, 4096), ragged n_valid incl. 0 and 1, constant rows "
+        f"incl. {TINY:g}: max abs err {worst:.3g} (atol 1e-5 + rtol 1e-5, "
+        f"cumulative-k exact)")
+
+    worst_b = worst_s = 0.0
+    for (b, dt, dq, h, tol) in ((64, 110, 32, 128, SCORE_TOL),
+                                (PAPER["b"], PAPER["dt"], PAPER["dq"],
+                                 PAPER["h"], SCORE_TOL_WIDE)):
+        w = paper_params(gen, dt, dq, h, dev)
+        w["b1"] = torch.randn(h, generator=gen, device=dev) * 0.1
+        w["b2"] = torch.randn(1, generator=gen, device=dev)
+        args = [w[k] for k in ("w1_t", "w1_q", "b1", "w2", "b2")]
+        for n in ((1, 129, 512) if dt == 110 else (PAPER["n"],)):
+            feats = torch.randn(b, n, dt, generator=gen, device=dev)
+            q = torch.randn(b, dq, generator=gen, device=dev)
+            e = check_close(f"triple_score_batched B={b} N={n} Dt={dt}",
+                            ts.triple_score_batched(feats, q, *args),
+                            ts.triple_score_batched_plain(feats, q, *args),
+                            **tol)
+            worst_b = max(worst_b, e)
+            log(f"phase kernels: triple_score_batched B={b} N={n} Dt={dt} "
+                f"Dq={dq} H={h}: max abs err {e:.3g} ({tol})")
+            qs = q[:3]
+            e = check_close(f"triple_score N={n} Q=3 Dt={dt}",
+                            ts.triple_score(feats[0], qs, *args),
+                            ts.triple_score_plain(feats[0], qs, *args), **tol)
+            worst_s = max(worst_s, e)
+            log(f"phase kernels: triple_score N={n} Q=3 Dt={dt} H={h}: "
+                f"max abs err {e:.3g} ({tol})")
+        del feats
+    errs["triple_score_batched"] = worst_b
+    errs["triple_score"] = worst_s
+    torch.cuda.synchronize()
+
+
+class Tally:
+    """Launch counts per main-path step, from the wrappers' counters."""
+
+    def __init__(self):
+        from repro_torch.kernels import cuda_build
+        self.counts = cuda_build.LAUNCHES
+        self.per_path: dict[str, dict[str, int]] = {}
+
+    def step(self, name: str, fn):
+        import torch
+        before = dict(self.counts)
+        out = fn()
+        torch.cuda.synchronize()
+        self.per_path[name] = {k: self.counts[k] - before[k]
+                               for k in self.counts}
+        return out
+
+
+def compare_route(what: str, got: dict, want: dict, thresholds) -> int:
+    """Tiers equal (outside a band of E2E_TOL around each threshold, whose
+    rows are counted), n_valid exact, probs within 1e-5, the other metric
+    columns and difficulty within E2E_TOL, cumulative-k within one.
+    Returns the rows inside the band."""
+    import numpy as np
+    from repro_torch.kernels.device import to_numpy
+    g = {k: to_numpy(v) for k, v in got.items()}
+    w = {k: to_numpy(v) for k, v in want.items()}
+    if not np.array_equal(g["n_valid"], w["n_valid"]):
+        raise AssertionError(f"{what}: n_valid differs")
+    check_close(f"{what} probs", g["probs"], w["probs"], atol=1e-5, rtol=0)
+    cols = [0, 2, 3]
+    check_close(f"{what} metrics", g["metrics"][:, cols],
+                w["metrics"][:, cols], **E2E_TOL)
+    check_close(f"{what} difficulty", g["difficulty"], w["difficulty"],
+                **E2E_TOL)
+    moved = np.flatnonzero(g["metrics"][:, 1] != w["metrics"][:, 1])
+    if len(moved):
+        log(f"  {what}: cumulative-k differs in rows {moved.tolist()}: "
+            f"{g['metrics'][moved, 1].tolist()} vs "
+            f"{w['metrics'][moved, 1].tolist()}")
+    check_close(f"{what} cumulative-k", g["metrics"][:, 1],
+                w["metrics"][:, 1], atol=1.0, rtol=0)
+    ts = np.asarray(thresholds, np.float64)
+    d = w["difficulty"].astype(np.float64)
+    band = E2E_TOL["atol"] + E2E_TOL["rtol"] * np.abs(ts)
+    near = (np.abs(d[:, None] - ts[None, :]) <= band[None, :]).any(1)
+    wrong = (g["tiers"] != w["tiers"]) & ~near
+    if wrong.any():
+        raise AssertionError(f"{what}: tiers differ in rows "
+                             f"{np.flatnonzero(wrong)[:10].tolist()}")
+    return int(near.sum())
+
+
+def as_route(res) -> dict:
+    """A session's RetrievedDispatchResult or a RetrievedRouteResult ->
+    the comparable fields."""
+    if hasattr(res, "result"):
+        return dict(tiers=res.tiers, n_valid=res.n_valid, probs=res.probs,
+                    metrics=res.result.metrics,
+                    difficulty=res.result.difficulty)
+    return dict(tiers=res.tiers, n_valid=res.n_valid, probs=res.probs,
+                metrics=res.metrics, difficulty=res.difficulty)
+
+
+def phase_server(dev, errs: dict) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.api import (CalibrationSpec, RouteSpec,
+                                 SkewRouteSession, build, make_backend)
+    from repro_torch.core import RouterConfig, calibrate_threshold
+    from repro_torch.core.router import (route_retrieved,
+                                         route_retrieved_staged)
+    from repro_torch.kernels.triple_score import kernel as ts
+    from repro_torch.retrieval import scorer as sc
+    from repro_torch.retrieval import synthetic
+
+    t0 = time.perf_counter()
+    data = synthetic.make_dataset("cwq", n_queries=420, n_entities=4000,
+                                  seed=SEED)
+    kg, ent, rel = data.kg, data.entity_emb, data.relation_emb
+    if len(data.queries) < 420:
+        raise AssertionError(f"synthetic CWQ made {len(data.queries)} "
+                             f"queries, 420 needed")
+    cfg = sc.ScorerConfig()                      # Dt=110, Dq=32, H=128, K=100
+    params = sc.init_scorer(torch.Generator().manual_seed(SEED), cfg)
+    serve_q = data.queries[100:164]
+    feats, qemb, _, n_cand = sc.batch_triple_features(
+        kg, ent, rel, serve_q, max_cands=512, seed=SEED)
+    one = sc.batch_triple_features(kg, ent, rel, data.queries[164:165],
+                                   max_cands=512, seed=SEED)
+    log(f"phase server: synthetic CWQ KG of {kg.n_triples} triples; serving "
+        f"batch feats {feats.shape}, n_cand {n_cand.min()}..{n_cand.max()} "
+        f"({time.perf_counter() - t0:.1f} s host data pipeline)")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    pw = dict(PAPER)
+    p_params = paper_params(gen, pw["dt"], pw["dq"], pw["h"], dev)
+    p_feats = torch.randn(pw["b"], pw["n"], pw["dt"], generator=gen,
+                          device=dev)
+    p_q = torch.randn(pw["b"], pw["dq"], generator=gen, device=dev)
+    p_cal_feats = torch.randn(100, pw["n"], pw["dt"], generator=gen,
+                              device=dev)
+    p_cal_q = torch.randn(100, pw["dq"], generator=gen, device=dev)
+
+    tally = Tally()
+    for k in tally.counts:
+        tally.counts[k] = 0
+    # ---- the main path: launches counted from here ----------------------
+    budget = 0.4
+
+    def calibrate_kgqa():
+        rows, nvs = [], []
+        for q in data.queries[:100]:
+            _, probs = sc.retrieve(params, kg, ent, rel, q, cfg, seed=SEED)
+            rows.append(np.pad(probs[:100], (0, max(0, 100 - len(probs)))))
+            nvs.append(min(len(probs), 100))
+        nvs = np.asarray(nvs)
+        mask = np.arange(100)[None, :] < nvs[:, None]
+        return calibrate_threshold(
+            torch.as_tensor(np.stack(rows), device=dev), budget, "gini",
+            mask=torch.as_tensor(mask, device=dev))
+
+    theta = tally.step("calibrate: retrieve x100", calibrate_kgqa)
+    payload = RouteSpec(
+        metric="gini", thresholds=(theta,), tier_names=("qwen7b", "qwen72b"),
+        backend="auto", calibration=CalibrationSpec(
+            policy="streaming", target_shares=(1 - budget, budget),
+            window=1024, min_samples=64)).to_json()
+    session = build(RouteSpec.from_json(payload))
+    log(f"phase server: gini threshold {theta:.6f} for a {budget:.0%} "
+        f"large-tier budget; spec {payload}")
+
+    cfg1 = session.dispatcher.router
+    r1 = tally.step("kgqa auto B=1", lambda: session.route_retrieved(
+        one[0], one[1], params, n_cand=one[3]))
+    cfg64 = session.dispatcher.router
+    r64 = tally.step("kgqa auto B=64", lambda: session.route_retrieved(
+        feats, qemb, params, n_cand=n_cand))
+
+    spec = RouteSpec.from_json(payload)
+    pallas = build(RouteSpec.from_json(
+        dataclasses.replace(spec, backend="pallas").to_json()))
+    cfgp = pallas.dispatcher.router
+    rp = tally.step("kgqa pallas route B=64", lambda: pallas.route(
+        r64.probs, n_valid=r64.n_valid))
+    rb = tally.step("retrieve_batch B=8", lambda: sc.retrieve_batch(
+        params, kg, ent, rel, data.queries[200:208], cfg, seed=SEED))
+
+    def calibrate_paper():
+        cal = route_retrieved(p_cal_feats, p_cal_q, p_params,
+                              RouterConfig(metric="gini"),
+                              use_kernels=False)
+        return calibrate_threshold(cal.probs, budget, "gini",
+                                   mask=torch.arange(cal.probs.shape[1],
+                                                     device=dev)[None]
+                                   < cal.n_valid[:, None])
+
+    p_theta = tally.step("paper calibrate (oracle)", calibrate_paper)
+    paper = build(RouteSpec.from_json(dataclasses.replace(
+        spec, backend="fused", thresholds=(p_theta,)).to_json()))
+    cfgw = paper.dispatcher.router
+    rw = tally.step("paper fused B=256", lambda: paper.route_retrieved(
+        p_feats, p_q, p_params))
+    launches = dict(tally.counts)
+    # ---- end of the main path -------------------------------------------
+    log(f"phase server: launches per path {json.dumps(tally.per_path)}")
+    log(f"phase server: main path launches {json.dumps(launches)}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    for path, need in (("kgqa auto B=64", ("skew_metrics",
+                                           "triple_score_batched")),
+                       ("paper fused B=256", ("skew_metrics",
+                                              "triple_score_batched")),
+                       ("kgqa pallas route B=64", ("skew_metrics",)),
+                       ("retrieve_batch B=8", ("triple_score_batched",)),
+                       ("calibrate: retrieve x100", ("triple_score",))):
+        if any(tally.per_path[path][k] < 1 for k in need):
+            raise AssertionError(f"{path} did not launch {need}")
+    if any(tally.per_path["kgqa auto B=1"].values()):
+        raise AssertionError("auto at B=1 launched a kernel; it must take "
+                             "the oracle side of the crossover")
+
+    # ---- hold the answers against the oracle (card) and staged (CPU) ----
+    oracle = make_backend("oracle")
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    bands = {}
+    want = oracle.route_retrieved(one[0], one[1], params, cfg1,
+                                  n_cand=one[3])
+    bands["kgqa B=1 vs oracle"] = compare_route(
+        "kgqa auto B=1 vs oracle", as_route(r1), as_route(want),
+        cfg1.thresholds)
+    want = oracle.route_retrieved(feats, qemb, params, cfg64, n_cand=n_cand)
+    bands["kgqa B=64 vs oracle"] = compare_route(
+        "kgqa auto B=64 vs oracle", as_route(r64), as_route(want),
+        cfg64.thresholds)
+    staged = route_retrieved_staged(feats, qemb, cpu_params, cfg64,
+                                    n_cand=n_cand)
+    bands["kgqa B=64 vs staged"] = compare_route(
+        "kgqa auto B=64 vs staged (CPU)", as_route(r64), as_route(staged),
+        cfg64.thresholds)
+    want_p = oracle.route_batch(r64.probs, cfgp, n_valid=r64.n_valid)
+    check_close("pallas route metrics vs oracle", rp.metrics,
+                want_p.metrics, **SKEW_TOL)
+    if not np.array_equal(rp.tiers, want_p.tiers.cpu().numpy()):
+        raise AssertionError("pallas route B=64: tiers differ from oracle")
+    want = oracle.route_retrieved(p_feats, p_q, p_params, cfgw)
+    bands["paper B=256 vs oracle"] = compare_route(
+        "paper fused B=256 vs oracle", as_route(rw), as_route(want),
+        cfgw.thresholds)
+    staged_w = route_retrieved_staged(p_feats, p_q, p_params, cfgw)
+    bands["paper B=256 vs staged"] = compare_route(
+        "paper fused B=256 vs staged (CPU)", as_route(rw),
+        as_route(staged_w), cfgw.thresholds)
+    log(f"phase server: answers == oracle on the card and == staged on the "
+        f"CPU (tiers exact; probs atol 1e-5; metrics {E2E_TOL}); rows "
+        f"within the tolerance band of a threshold: {json.dumps(bands)}")
+    cpu_rb = sc.retrieve_batch(cpu_params, kg, ent, rel,
+                               data.queries[200:208], cfg, seed=SEED)
+    if not np.array_equal(rb[2], cpu_rb[2]):
+        raise AssertionError("retrieve_batch: n_valid differs from the CPU")
+    check_close("retrieve_batch probs vs CPU", rb[1], cpu_rb[1], atol=1e-5,
+                rtol=0)
+    same = (rb[0] == cpu_rb[0]).mean()
+    log(f"phase server: retrieve_batch B=8 on the card == CPU (probs atol "
+        f"1e-5; {same:.1%} of edge ids identical, the rest ties)")
+    e = check_close(
+        "triple_score_batched on the KGQA batch",
+        ts.triple_score_batched(torch.as_tensor(feats, device=dev),
+                                torch.as_tensor(qemb, device=dev),
+                                *sc.kernel_weights(params)),
+        ts.triple_score_batched_plain(torch.as_tensor(feats, device=dev),
+                                      torch.as_tensor(qemb, device=dev),
+                                      *sc.kernel_weights(params)),
+        **SCORE_TOL)
+    errs["triple_score_batched"] = max(errs["triple_score_batched"], e)
+
+    tiers = {"kgqa auto B=1": np.bincount(r1.tiers, minlength=2).tolist(),
+             "kgqa auto B=64": np.bincount(r64.tiers, minlength=2).tolist(),
+             "kgqa pallas B=64": np.bincount(rp.tiers, minlength=2).tolist(),
+             "paper fused B=256": np.bincount(rw.tiers, minlength=2).tolist()}
+    log(f"phase server: tier counts {json.dumps(tiers)}; auto's "
+        f"crossover_batch {session.backend.crossover_batch}; thresholds "
+        f"now {session.thresholds} (kgqa), {paper.thresholds} (paper)")
+    snap = json.loads(json.dumps(session.snapshot()))
+    restored = SkewRouteSession.from_snapshot(snap)
+    if restored.thresholds != session.thresholds or \
+            restored.snapshot() != snap:
+        raise AssertionError("snapshot did not restore into a fresh session")
+    log(f"phase server: snapshot envelope v{snap['envelope_version']} "
+        f"({len(json.dumps(snap))} bytes) restored into a fresh session: "
+        f"thresholds {restored.thresholds}")
+    # the [B, K] rows the skew kernel saw on the main path
+    skew_rows = {len(r.probs): (torch.as_tensor(r.probs, device=dev),
+                                torch.as_tensor(r.n_valid, device=dev))
+                 for r in (rw, r64)}
+    return dict(launches=launches, per_path=tally.per_path,
+                skew_rows=skew_rows,
+                kgqa=dict(feats=feats, qemb=qemb, n_cand=n_cand,
+                          params=params, cfg=cfg64, data=data, scfg=cfg),
+                paper=dict(feats=p_feats, q=p_q, params=p_params, cfg=cfgw,
+                           **pw))
+
+
+def skew_bound_ms(b: int, k: int, valid: int) -> tuple[float, str]:
+    """Bytes: each valid score read once, n_valid read, [B, 4] written.
+    Operations: ~20 per valid score (normalise, log2, products, sums)."""
+    nbytes = valid * 4 + b * 4 + b * 16
+    ops = 20 * valid
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOP_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def score_bound_ms(q: int, n: int, dt: int, h: int, shared: bool
+                   ) -> tuple[float, str]:
+    """Operations: the first layer's 2*Dt*H and the epilogue's ~4*H per
+    candidate and query. Bytes: features (once, shared or per query),
+    the [Q, H] bias, W1_t, w2, b2 in; [Q, N] scores out."""
+    ops = q * n * h * (2 * dt + 4)
+    feats = n * dt * 4 * (1 if shared else q)
+    nbytes = feats + q * h * 4 + dt * h * 4 + h * 4 + 4 + q * n * 4
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOP_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def kernel_ms(raw, iters: int, kernel: str) -> dict:
+    """The kernel's own device time from the CUPTI trace (``ms``), and
+    the CUDA-event time per launch of ``iters`` back-to-back raw
+    launches (``event_ms``: the issue rate, for microsecond kernels the
+    host's ctypes call rather than the card)."""
+    ev = event_time(raw, iters)
+    dev_ms = kernel_device_ms(raw, max(iters, 10), kernel)
+    return dict(ms=ev if dev_ms is None else dev_ms, event_ms=ev,
+                ms_from="cuda events" if dev_ms is None else "cupti trace")
+
+
+def phase_times(dev, server: dict) -> dict:
+    import torch
+    from repro_torch.core.router import route_retrieved
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.skew_metrics import kernel as sk
+    from repro_torch.kernels.triple_score import kernel as ts
+    from repro_torch.retrieval import scorer as sc
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = {}
+
+    # skew_metrics on the rows the main path gave it (K=100; B=256 paper
+    # width, B=64 KGQA width) and at the reference bench's B=4096
+    rows_in = dict(server["skew_rows"])
+    rows_in[4096] = (desc_scores(gen, 4096, 100, 0.01, 1.0, dev),
+                     torch.randint(50, 101, (4096,), generator=gen,
+                                   device=dev, dtype=torch.int32))
+    for b in (256, 64, 4096):
+        s, nv = rows_in[b]
+        k = s.shape[1]
+        out = torch.empty(b, 4, device=dev)
+
+        def raw():
+            cuda_build.launch("skew_metrics", s.data_ptr(), nv.data_ptr(),
+                              out.data_ptr(), b, k, sk.p_threshold(0.95),
+                              stream)
+        bound, by = skew_bound_ms(b, k, int(nv.clamp(1, k).sum()))
+        rows[f"skew_metrics B={b} K={k}"] = dict(
+            name="skew_metrics", shape=[b, k],
+            **kernel_ms(raw, 200, "skew_metrics_kernel"),
+            call_ms=event_time(lambda: sk.skew_metrics(s, nv), 50),
+            plain_ms=event_time(lambda: sk.skew_metrics_plain(s, nv), 20),
+            bound_ms=bound, bound_by=by, library_ms=None)
+
+    def score_row(name, feats, q, w, shared):
+        fn = ts.triple_score if shared else ts.triple_score_batched
+        plain = ts.triple_score_plain if shared else \
+            ts.triple_score_batched_plain
+        nq = q.shape[0]
+        n, dt = feats.shape[-2], feats.shape[-1]
+        h = w["w1_t"].shape[1]
+        args = sc.kernel_weights(w)
+        qb = q @ w["w1_q"] + w["b1"]
+        out = torch.empty(nq, n, device=dev)
+
+        def raw():
+            cuda_build.launch("triple_score", feats.data_ptr(),
+                              0 if shared else n * dt, qb.data_ptr(),
+                              w["w1_t"].data_ptr(), w["w2"].data_ptr(),
+                              w["b2"].data_ptr(), out.data_ptr(), nq, n, dt,
+                              h, stream)
+
+        def library():
+            # cuBLAS GEMMs with the bias folded into the first one
+            t = feats if not shared else feats.expand(nq, n, dt)
+            hid = torch.baddbmm(qb[:, None, :], t,
+                                w["w1_t"].expand(nq, dt, h))
+            return (torch.relu(hid) @ w["w2"])[..., 0] + w["b2"][0]
+
+        big = nq * n * dt * h > 1e9
+        iters = 3 if big else 50
+        bound, by = score_bound_ms(nq, n, dt, h, shared)
+        rows[name] = dict(
+            name="triple_score" if shared else "triple_score_batched",
+            shape=[nq, n, dt, q.shape[1], h],
+            **kernel_ms(raw, iters, "triple_score_kernel"),
+            call_ms=event_time(lambda: fn(feats, q, *args), iters),
+            plain_ms=event_time(lambda: plain(feats, q, *args), iters),
+            library_ms=event_time(library, iters), bound_ms=bound,
+            bound_by=by)
+
+    pw, kq = server["paper"], server["kgqa"]
+    score_row("triple_score_batched paper B=256", pw["feats"], pw["q"],
+              pw["params"], shared=False)
+    kfeats = torch.as_tensor(kq["feats"], device=dev)
+    kqemb = torch.as_tensor(kq["qemb"], device=dev)
+    score_row("triple_score_batched kgqa B=64", kfeats, kqemb, kq["params"],
+              shared=False)
+    n0 = int(kq["n_cand"][0])
+    score_row("triple_score kgqa retrieve Q=1", kfeats[0, :n0].contiguous(),
+              kqemb[:1], kq["params"], shared=True)
+    for name, row in rows.items():
+        log(f"phase times: {name}: {json.dumps(row)}")
+
+    # end-to-end route_retrieved, fused vs oracle, interleaved per B
+    e2e = {}
+    for width, d in (("kgqa", None), ("paper", pw)):
+        if d is None:
+            data, scfg = kq["data"], kq["scfg"]
+            f, q, _, nc = sc.batch_triple_features(
+                data.kg, data.entity_emb, data.relation_emb,
+                data.queries[164:420], max_cands=512, seed=SEED)
+            f, q = torch.as_tensor(f, device=dev), torch.as_tensor(q,
+                                                                   device=dev)
+            nc = torch.as_tensor(nc, device=dev)
+            params, cfg = kq["params"], kq["cfg"]
+        else:
+            f, q, nc, params, cfg = d["feats"], d["q"], None, d["params"], \
+                d["cfg"]
+        for b in (1, 8, 32, 64, 256):
+            args = (f[:b], q[:b], params, cfg)
+            kw = dict(n_cand=None if nc is None else nc[:b])
+            fused = lambda: route_retrieved(*args, use_kernels=True, **kw)
+            orc = lambda: route_retrieved(*args, use_kernels=False, **kw)
+            reps = 5 if width == "paper" else 20
+            fns = {"fused": fused, "oracle": orc}
+            fused(), orc()
+            t = {"fused": [], "oracle": []}
+            for order in (("fused", "oracle"), ("oracle", "fused")):
+                for path in order:
+                    t[path].append(sync_time(fns[path], reps))
+            e2e[f"{width} B={b}"] = dict(
+                B=b, fused_ms=statistics.median(t["fused"]),
+                oracle_ms=statistics.median(t["oracle"]))
+            log(f"phase times: route_retrieved {width} width "
+                f"{json.dumps(e2e[f'{width} B={b}'])}")
+            if (width, b) in (("kgqa", 64), ("paper", 256)):
+                for path, fn in fns.items():
+                    bd = device_breakdown(fn, reps)
+                    e2e[f"{width} B={b}"][f"{path}_device"] = bd
+                    log(f"phase times: {width} B={b} {path}: device busy "
+                        f"{bd['busy_ms']:.4f} of {bd['wall_ms']:.4f} ms per "
+                        f"call (idle share {bd['idle_share']}); top "
+                        f"{json.dumps(bd['top'])}")
+    for width in ("kgqa", "paper"):
+        wins = [v["B"] for k, v in e2e.items()
+                if k.startswith(width) and v["fused_ms"] <= v["oracle_ms"]]
+        log(f"phase times: {width} width: fused <= oracle at B={wins}")
+    return dict(kernels=rows, e2e=e2e)
+
+
+def kernel_lines(server: dict, times: dict, errs: dict) -> list[dict]:
+    """One entry per kernel for the JSON result line."""
+    replaces = {
+        "skew_metrics": ("src/repro_torch/kernels/csrc/skew_metrics.cu",
+                         "src/repro/kernels/skew_metrics/kernel.py:84",
+                         "skew_metrics B=256 K=100"),
+        "triple_score_batched": (
+            "src/repro_torch/kernels/csrc/triple_score.cu",
+            "src/repro/kernels/triple_score/kernel.py:83",
+            "triple_score_batched paper B=256"),
+        "triple_score": ("src/repro_torch/kernels/csrc/triple_score.cu",
+                         "src/repro/kernels/triple_score/kernel.py:48",
+                         "triple_score kgqa retrieve Q=1"),
+    }
+    kernels = []
+    for name, (source, ref, row) in replaces.items():
+        r = times["kernels"][row]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=ref,
+            launches=server["launches"][name], max_abs_err=errs[name],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            call_ms=r["call_ms"], event_ms=r["event_ms"],
+            ms_from=r["ms_from"], shape=r["shape"],
+            launches_by_path={p: c[name] for p, c in
+                              server["per_path"].items()}))
+    return kernels
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel-vs-plain checks")
+    args = ap.parse_args()
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke.py must run from a checkout of the repository "
+              "(src/repro_torch not found)", file=sys.stderr)
+        return 2
+    sys.modules["jax"] = None       # the port must not need either
+    sys.modules["repro"] = None
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py runs on the GPU only",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    warnings.filterwarnings("ignore", message=".*Profiler clears events")
+    errs: dict[str, float] = {}
+    t0 = time.perf_counter()
+    info = phase_device(dev)
+    phase_kernels(dev, errs)
+    if args.kernels_only:
+        log(f"kernels-only run done in {time.perf_counter() - t0:.1f} s")
+        return 0
+    server = phase_server(dev, errs)
+    times = phase_times(dev, server)
+    kernels = kernel_lines(server, times, errs)
+    log(f"run took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(info["smi"], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

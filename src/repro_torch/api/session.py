@@ -1,0 +1,482 @@
+"""`SkewRouteSession`: the one blessed serving facade.
+
+``session = repro_torch.api.build(spec)`` composes everything the old surface
+made callers hand-wire across four modules — threshold router, difficulty
+backend, streaming calibrator, micro-batch queues, engine-bank runners,
+cost telemetry — behind three verbs:
+
+* ``session.route(scores)``          — batched tier assignment (fast path)
+* ``session.submit(scores, items)``  — route AND pump per-tier micro-
+  batches through the tier runners (needs ``runners=`` at build time)
+* ``session.snapshot()/restore()``   — the complete mutable routing state
+  (hot-swapped thresholds, calibrator window, telemetry counters) as a
+  JSON-serializable dict, so multi-replica deployments can ship policy
+  AND state as bytes.
+
+The session owns no novel logic: it builds the same
+:class:`~repro_torch.serving.router_service.SkewRouteDispatcher` /
+:class:`~repro_torch.serving.pipeline.ServingPipeline` internals (suppressing
+their deprecation shims), which keeps the old API importable during the
+migration window.
+
+The device is RUNTIME configuration, like ``runners=``: ``device=None``
+runs on CUDA (and raises where there is none), ``device="cpu"`` runs the
+plain PyTorch path. It is never written into the spec or a snapshot, so
+an envelope taken on the card restores in a CPU session and vice versa.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import warnings
+from typing import (Callable, Mapping, Optional, Protocol, Sequence, Union,
+                    runtime_checkable)
+
+import numpy as np
+import torch
+
+from repro_torch.api import backends as _backends
+from repro_torch.api.spec import (ENVELOPE_VERSION, SCHEMA_VERSION, RouteSpec,
+                            policy_fingerprint)
+from repro_torch.kernels.device import DeviceLike, resolve_device
+from repro_torch.obs import NULL_OBS, Observability
+from repro_torch.serving import _deprecation
+from repro_torch.serving.admission import AdmissionController
+from repro_torch.serving.pipeline import PipelineTelemetry, ServingPipeline
+from repro_torch.serving.router_service import (BatchDispatchResult, DispatchRecord,
+                                          SkewRouteDispatcher)
+
+Runners = Mapping[int, Callable[[list], object]]
+
+
+def _rows(scores_desc) -> torch.Tensor:
+    """numpy or tensor scores -> a 2-D tensor (left where it lives; the
+    dispatcher moves it to the session's device)."""
+    return torch.atleast_2d(torch.as_tensor(scores_desc))
+
+
+@runtime_checkable
+class EngineBankLike(Protocol):
+    """Anything exporting per-tier runner callables (e.g. an
+    :class:`~repro_torch.serving.engine.EngineBank`)."""
+
+    def runners(self) -> Runners: ...
+
+
+class SkewRouteSession:
+    """A running routing policy built from a :class:`RouteSpec`."""
+
+    def __init__(self, spec: RouteSpec,
+                 runners: Optional[Union[Runners, EngineBankLike]] = None,
+                 obs: Optional[Observability] = None,
+                 device: DeviceLike = None):
+        self.spec = spec
+        # Environment, never serialized: fail now (not at the first
+        # request) when CUDA is asked for and missing.
+        resolve_device(device)
+        self.device = device
+        # Observability is RUNTIME configuration (like runners): an
+        # `Observability` plane to record into, or None for the no-op
+        # plane. Never serialized into the spec; metric VALUES ride the
+        # snapshot envelope's state half when enabled (state["obs"]),
+        # trace events never do (local measurement history).
+        self.obs = obs or NULL_OBS
+        # crossover_batch is policy and rides in the spec; the device is
+        # environment — passed to the backend, resolved per call (see
+        # repro_torch.kernels.device.resolve_device), never serialized.
+        backend_kwargs = ({"crossover_batch": spec.crossover_batch}
+                          if spec.backend in ("auto", "sharded") else {})
+        self.backend = _backends.make_backend(spec.backend, device=device,
+                                              **backend_kwargs)
+        if hasattr(self.backend, "attach_obs"):
+            self.backend.attach_obs(self.obs)
+        # One facade-level lock makes session verbs atomic w.r.t. each
+        # other (the dispatcher's internal lock only covers its own
+        # counters, not the pipeline queues a concurrent submit mutates).
+        self._lock = threading.RLock()
+        with _deprecation.suppress():
+            # The routing policy (what to DO with the skew metrics):
+            # spec.policy=None builds the default threshold policy —
+            # today's compare, bit-for-bit.
+            from repro_torch.policies import build_policy
+            self.policy = build_policy(
+                spec.policy, n_tiers=spec.n_tiers, tier_models=spec.models(),
+                cost_model=spec.cost_model())
+            self.dispatcher = SkewRouteDispatcher(
+                spec.router_config(), spec.models(),
+                cost_model=spec.cost_model(), backend=self.backend,
+                policy=self.policy, obs=self.obs, device=device)
+            cal = spec.calibration
+            if cal.policy == "streaming":
+                self.dispatcher.attach_calibrator(
+                    cal.target_shares, window=cal.window,
+                    min_samples=cal.min_samples, tolerance=cal.tolerance,
+                    cooldown=cal.cooldown)
+            self.admission: Optional[AdmissionController] = None
+            if spec.admission is not None:
+                if runners is None:
+                    raise ValueError(
+                        "spec.admission is set but no runners were given; "
+                        "admission control lives on the submit() path — "
+                        "pass runners= (a {tier: callable} dict or an "
+                        "EngineBank) to repro_torch.api.build")
+                self.admission = AdmissionController(
+                    self.dispatcher.calibrator, spec.cost_model(),
+                    spec.models(), spec.admission, obs=self.obs)
+            self.pipeline: Optional[ServingPipeline] = None
+            if runners is not None:
+                if isinstance(runners, EngineBankLike):
+                    runners = runners.runners()
+                self.pipeline = ServingPipeline(
+                    self.dispatcher, dict(runners),
+                    micro_batch=spec.micro_batch,
+                    admission=self.admission, obs=self.obs)
+
+    # -- views ----------------------------------------------------------------
+
+    @property
+    def tier_names(self) -> tuple[str, ...]:
+        return self.spec.tier_names
+
+    @property
+    def thresholds(self) -> tuple[float, ...]:
+        """CURRENT thresholds (may differ from the spec after hot-swaps)."""
+        return self.dispatcher.router.thresholds
+
+    @property
+    def stats(self):
+        return self.dispatcher.stats
+
+    @property
+    def calibrator(self):
+        return self.dispatcher.calibrator
+
+    @property
+    def executed(self) -> list:
+        """Micro-batches run so far (`ExecutedBatch` telemetry objects);
+        empty for runner-less sessions — the facade-safe way to reach
+        per-batch runner results without touching pipeline internals."""
+        return [] if self.pipeline is None else list(self.pipeline.executed)
+
+    def current_spec(self) -> RouteSpec:
+        """The spec as-of-now: original policy + live thresholds. Ship
+        ``session.current_spec().to_json()`` to bring up a replica that
+        starts from this session's calibration point."""
+        return self.spec.with_thresholds(self.thresholds)
+
+    # -- routing --------------------------------------------------------------
+
+    def route(self, scores_desc,
+              n_valid: Optional[np.ndarray] = None,
+              self_scores: Optional[np.ndarray] = None
+              ) -> BatchDispatchResult:
+        """[B, K] descending top-K scores -> full dispatch result (tiers,
+        difficulty, all four metrics, per-request records).
+
+        ``self_scores``: optional [B] engine self-uncertainty (higher =
+        less confident) that confidence-aware policies (cascade) fold
+        into the decision; ignored by the default threshold policy.
+        """
+        return self.dispatcher.dispatch_batch(
+            _rows(scores_desc), n_valid=n_valid,
+            return_details=True, self_scores=self_scores)
+
+    def route_one(self, scores_desc: np.ndarray,
+                  n_valid: Optional[int] = None) -> DispatchRecord:
+        """One request (same fused path, batch of one)."""
+        return self.dispatcher.dispatch(scores_desc, n_valid=n_valid)
+
+    def route_retrieved(self, feats, query_emb, scorer_params: Mapping,
+                        n_cand: Optional[np.ndarray] = None):
+        """End-to-end routing from candidate features: fused triple
+        scoring -> device top-k -> skew metrics -> tier decision on the
+        session's device (no host hop between retrieval and dispatch).
+
+        ``feats``: [B, N, Dt] per-query candidate features, numpy or a
+        tensor (see `repro_torch.retrieval.scorer.batch_triple_features`);
+        ``query_emb``: [B, Dq]; ``scorer_params``: the scorer weight dict
+        (its layout is the kernel's). Returns a
+        :class:`~repro_torch.serving.router_service.RetrievedDispatchResult`
+        — dispatcher telemetry and streaming calibration update exactly
+        as for :meth:`route`.
+        """
+        return self.dispatcher.dispatch_retrieved(
+            feats, query_emb, scorer_params, n_cand=n_cand)
+
+    def submit(self, scores_desc,
+               payloads: Optional[Sequence] = None,
+               n_valid: Optional[np.ndarray] = None,
+               self_scores: Optional[np.ndarray] = None
+               ) -> BatchDispatchResult:
+        """Route a batch and pump full per-tier micro-batches through the
+        tier runners. Requires the session to be built with ``runners=``.
+        ``self_scores`` feeds confidence-aware policies as in
+        :meth:`route`."""
+        if self.pipeline is None:
+            raise RuntimeError(
+                "session was built without runners; pass runners= (a "
+                "{tier: callable} dict or an EngineBank) to repro_torch.api.build "
+                "to use submit()")
+        with self._lock:
+            return self.pipeline.submit(
+                _rows(scores_desc),
+                payloads=payloads, n_valid=n_valid, self_scores=self_scores)
+
+    def flush(self) -> int:
+        """Drain partial micro-batches; returns requests executed."""
+        with self._lock:
+            return 0 if self.pipeline is None else self.pipeline.flush()
+
+    def observe_tier_load(self, tier: int, queue_depth: int,
+                          p99_latency: Optional[float] = None) -> None:
+        """Feed a replica pool's load (waiting depth + p99, nan-safe) to
+        the admission controller — whoever owns the TierSchedulers calls
+        this before submitting (see serving.loadgen.runner)."""
+        if self.admission is None:
+            raise RuntimeError(
+                "session has no admission controller; set spec.admission "
+                "(an AdmissionSpec) to enable load-aware serving")
+        with self._lock:
+            self.admission.observe_tier_load(tier, queue_depth,
+                                             p99_latency=p99_latency)
+
+    def telemetry(self) -> dict:
+        """Merged dispatcher + pipeline + admission counters
+        (JSON-friendly)."""
+        s = self.dispatcher.stats
+        out = {
+            "backend": self.backend.name,
+            "thresholds": list(self.thresholds),
+            **s.state_dict(),
+            "large_call_ratio": s.large_call_ratio,
+        }
+        if self.pipeline is not None:
+            out["pipeline"] = self.pipeline.stats()
+        if self.admission is not None:
+            out["admission"] = self.admission.telemetry()
+        out["policy"] = self.policy.telemetry()
+        if self.obs.enabled:
+            out["obs"] = self.obs.telemetry()
+        return out
+
+    # -- serializable state ---------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """The session as a schema-versioned ENVELOPE: a frozen ``policy``
+        half (the spec) and a mutable ``state`` half (live thresholds,
+        dispatcher telemetry, the streaming calibrator's exact window,
+        the admission controller's full state) — the contract is
+        documented at :data:`repro_torch.api.spec.ENVELOPE_VERSION`.
+
+        :meth:`restore` rebuilds all of it bit-exactly; the replica-sync
+        fabric ships ONLY the ``state`` half (stamped with the policy
+        fingerprint) between replicas that already share the policy.
+        Pending micro-batch payloads are arbitrary Python objects and are
+        NOT serializable: ``flush()`` before snapshotting.
+        """
+        # the session lock serializes against submit(); the dispatcher
+        # lock against direct old-API dispatch_batch() callers
+        with self._lock:
+            if self.pipeline is not None:
+                depths = {t: len(q) for t, q in self.pipeline.queues.items()
+                          if len(q)}
+                if depths:
+                    raise RuntimeError(
+                        f"cannot snapshot with pending micro-batch payloads "
+                        f"(queue depths {depths}); call flush() first")
+            d = self.dispatcher
+            with d._lock:
+                state = {
+                    "policy_fingerprint": policy_fingerprint(self.spec),
+                    "thresholds": list(d.router.thresholds),
+                    "next_id": d._next_id,
+                    "stats": d.stats.state_dict(),
+                    "calibrator": (None if d.calibrator is None
+                                   else d.calibrator.state_dict()),
+                    "pipeline": None,
+                    "admission": (None if self.admission is None
+                                  else self.admission.state_dict()),
+                    # None for stateless policies (the default threshold
+                    # policy included), so default-policy envelopes stay
+                    # shape-compatible with pre-policy builds.
+                    "policy_state": d.policy.state_dict(),
+                }
+            if self.pipeline is not None:
+                state["pipeline"] = self.pipeline.telemetry.state_dict()
+            if self.obs.enabled:
+                # Metric values ride the envelope ONLY for obs-enabled
+                # sessions, so obs-less envelopes stay byte-identical to
+                # pre-obs builds. Trace events deliberately do not ride
+                # (a restored replica starts a fresh timeline).
+                state["obs"] = self.obs.state_dict()
+            return {
+                "envelope_version": ENVELOPE_VERSION,
+                "policy": self.spec.to_dict(),
+                "state": state,
+            }
+
+    _STATE_KEYS = ("thresholds", "next_id", "stats", "calibrator",
+                   "pipeline", "admission", "policy_state")
+
+    def _state_of(self, snap: Mapping) -> Mapping:
+        """Validate an envelope (or legacy flat v1 snapshot) against this
+        session's policy and return its state half."""
+        if "envelope_version" in snap:
+            ver = snap["envelope_version"]
+            if ver != ENVELOPE_VERSION:
+                raise ValueError(
+                    f"unsupported snapshot envelope_version {ver!r}; this "
+                    f"build understands version {ENVELOPE_VERSION}")
+            if snap.get("policy") != self.spec.to_dict():
+                raise ValueError(
+                    "snapshot was taken under a different RouteSpec; build "
+                    "a session from RouteSpec.from_dict(snapshot['policy']) "
+                    "instead")
+            return snap["state"]
+        # -- legacy flat v1: {"schema_version": 1, "spec": ..., <state>} --
+        if snap.get("schema_version") != SCHEMA_VERSION:
+            raise ValueError(
+                f"unsupported snapshot schema_version "
+                f"{snap.get('schema_version')!r}; this build understands "
+                f"envelope version {ENVELOPE_VERSION} (and the legacy flat "
+                f"version {SCHEMA_VERSION})")
+        _deprecation.warn_once(
+            "snapshot-v1",
+            "flat v1 session snapshots are deprecated; re-snapshot to get "
+            "the versioned policy/state envelope (see "
+            "repro_torch.api.spec.ENVELOPE_VERSION for the contract)")
+        if snap["spec"] != self.spec.to_dict():
+            raise ValueError("snapshot was taken under a different "
+                             "RouteSpec; build a session from "
+                             "RouteSpec.from_dict(snapshot['spec']) instead")
+        return {k: snap.get(k) for k in self._STATE_KEYS}
+
+    def restore(self, snap: Mapping) -> "SkewRouteSession":
+        """Load a :meth:`snapshot` back into this session (in place).
+
+        Accepts the versioned envelope AND (behind a warn-once shim) the
+        legacy flat v1 layout. Either way the snapshot must come from a
+        session with an IDENTICAL spec — restoring state across different
+        policies is a category error the policy check turns into a loud
+        one.
+        """
+        state = self._state_of(snap)
+        with self._lock:
+            return self._restore_locked(state)
+
+    def restore_state(self, state: Mapping) -> "SkewRouteSession":
+        """Load ONLY the ``state`` half of an envelope — what the replica
+        fabric ships between sessions that already share the policy.
+
+        The state's ``policy_fingerprint`` must match this session's
+        spec: state minted under a different policy is refused loudly
+        (there is no "close enough" for thresholds fit against another
+        policy's calibration window).
+        """
+        fp = state.get("policy_fingerprint")
+        ours = policy_fingerprint(self.spec)
+        if fp != ours:
+            raise ValueError(
+                f"state policy_fingerprint {fp!r} does not match this "
+                f"session's policy ({ours!r}); state only transfers "
+                f"between sessions built from the SAME RouteSpec")
+        with self._lock:
+            return self._restore_locked(state)
+
+    def _restore_locked(self, state: Mapping) -> "SkewRouteSession":
+        if self.pipeline is not None and self.pipeline.pending():
+            depths = {t: len(q) for t, q in self.pipeline.queues.items()
+                      if len(q)}
+            raise RuntimeError(
+                f"cannot restore over pending micro-batch payloads "
+                f"(queue depths {depths}); call flush() first")
+        adm_state = state.get("admission")
+        if (adm_state is None) != (self.admission is None):
+            raise ValueError("stateshot and session disagree on whether "
+                             "an admission controller is attached")
+        d = self.dispatcher
+        with d._lock:
+            d.router = dataclasses.replace(
+                d.router, thresholds=tuple(state["thresholds"]))
+            d._next_id = int(state["next_id"])
+            d.stats.load_state_dict(state["stats"])
+            cal_state = state.get("calibrator")
+            if (cal_state is None) != (d.calibrator is None):
+                raise ValueError("stateshot and session disagree on whether "
+                                 "a streaming calibrator is attached")
+            if cal_state is not None:
+                d.calibrator.load_state_dict(cal_state)
+                d.router = d.calibrator.config
+            # Absent in pre-policy (PR 8) envelopes and legacy v1 flats:
+            # get() -> None, which every policy accepts as "reset to
+            # spec-initial". A present-but-foreign block refuses loudly
+            # inside load_state_dict.
+            d.policy.load_state_dict(state.get("policy_state"))
+        if adm_state is not None:
+            self.admission.load_state_dict(adm_state)
+        # pipeline presence may legitimately differ (runners are runtime,
+        # not policy) — but state must never silently cross the gap
+        pipe_state = state.get("pipeline")
+        if pipe_state is not None and self.pipeline is None:
+            warnings.warn(
+                "stateshot carries pipeline telemetry but this session "
+                "was built without runners; those counters are not "
+                "restored", stacklevel=3)
+        elif self.pipeline is not None:
+            if pipe_state is None:
+                warnings.warn(
+                    "stateshot has no pipeline telemetry; this session's "
+                    "pipeline counters are reset to zero", stacklevel=3)
+                pipe_state = PipelineTelemetry(
+                    tier_counts={t: 0 for t in self.pipeline.queues}
+                ).state_dict()
+            # the contract lives in ServingPipeline.load_telemetry: queue
+            # payloads don't round-trip, counters restore on drained
+            # queues only (and executed history resets to match)
+            self.pipeline.load_telemetry(pipe_state)
+        if self.obs.enabled:
+            # Load the registry dump when the state carries one (absent
+            # in obs-less / pre-obs envelopes -> registry resets), then
+            # re-point every component's mirrors at its restored
+            # counters so registry views and counter views agree no
+            # matter where the state came from.
+            self.obs.load_state_dict(state.get("obs"))
+            d._obs_resync()
+            if self.admission is not None:
+                self.admission._obs_resync()
+            if self.pipeline is not None:
+                self.pipeline._obs_resync()
+        return self
+
+    @classmethod
+    def from_snapshot(cls, snap: Mapping,
+                      runners: Optional[Runners] = None,
+                      obs: Optional[Observability] = None,
+                      device: DeviceLike = None) -> "SkewRouteSession":
+        """Stand up a replica directly from another session's snapshot
+        (envelope or legacy flat v1)."""
+        policy = snap.get("policy") if "envelope_version" in snap \
+            else snap.get("spec")
+        if policy is None:
+            raise ValueError("snapshot has no policy half (expected "
+                             "'policy' in an envelope or 'spec' in a "
+                             "legacy flat v1 snapshot)")
+        session = cls(RouteSpec.from_dict(policy), runners=runners, obs=obs,
+                      device=device)
+        return session.restore(snap)
+
+
+def build(spec: RouteSpec,
+          runners: Optional[Runners] = None,
+          obs: Optional[Observability] = None,
+          device: DeviceLike = None) -> SkewRouteSession:
+    """The one entry point: declarative spec -> running session.
+
+    ``obs``: an :class:`repro_torch.obs.Observability` plane to record
+    metrics + request traces into (runtime configuration, like
+    ``runners`` — never part of the spec). Default: the no-op plane.
+    ``device``: where routing runs — CUDA by default, ``"cpu"`` only when
+    asked (runtime configuration too).
+    """
+    return SkewRouteSession(spec, runners=runners, obs=obs, device=device)

@@ -1,0 +1,391 @@
+"""Declarative, serializable routing policy: the `RouteSpec`.
+
+SkewRoute's whole pitch (paper §4) is that the router is training-free
+plain floats — trivially replicated and hot-swapped. `RouteSpec` makes
+the ENTIRE policy that trivial, not just the thresholds: metric, tier
+topology, cost model, calibration policy, and difficulty backend live in
+one frozen, schema-versioned dataclass that round-trips through JSON.
+Replicas ship the policy as bytes (`spec.to_json()`), not Python
+objects; `repro_torch.api.build(spec)` turns it back into a running session.
+
+Validation happens at construction: the embedded router parameters are
+checked by actually building the :class:`~repro_torch.core.router.RouterConfig`
+(so every `RouterConfig` invariant — metric name, ascending thresholds,
+``top_k >= 1``, ``cumulative_p`` in (0, 1] — is inherited, never
+re-implemented), and the spec-level fields (tier names, shares,
+calibration knobs, backend name) are checked here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+from typing import Any, Mapping, Optional, Sequence
+
+from repro_torch.api import backends as _backends
+from repro_torch.core.cost import CostModel
+from repro_torch.core.router import RouterConfig
+from repro_torch.policies import PolicySpec, policy_spec_from_dict
+from repro_torch.serving.admission import AdmissionSpec
+
+SCHEMA_VERSION = 1
+
+#: Snapshot ENVELOPE contract (version 2) — what
+#: ``SkewRouteSession.snapshot()`` emits::
+#:
+#:     {
+#:       "envelope_version": 2,
+#:       "policy": <RouteSpec.to_dict()>,      # frozen; never mutates
+#:       "state":  {                           # everything that does
+#:         "policy_fingerprint": <policy_fingerprint(spec)>,
+#:         "thresholds": [...],                # live (post-hot-swap)
+#:         "next_id": int,
+#:         "stats": <DispatcherStats.state_dict()>,
+#:         "calibrator": <StreamingCalibrator.state_dict()> | null,
+#:         "pipeline": <PipelineTelemetry.state_dict()> | null,
+#:         "admission": <AdmissionController.state_dict()> | null,
+#:         "policy_state": <RoutingPolicy.state_dict()> | null,
+#:       },
+#:     }
+#:
+#: The split is the multi-replica story: the POLICY half is immutable
+#: and shipped once (or derived from the shared spec); the STATE half is
+#: what replicas exchange every sync round (see
+#: ``distributed.replica_sync`` / ``serving.fabric``), stamped with the
+#: policy fingerprint so state can never silently cross policies.
+#: ``restore()`` also accepts the legacy flat version-1 layout
+#: (``{"schema_version": 1, "spec": ..., <state keys inline>}``) behind
+#: a warn-once deprecation shim.
+ENVELOPE_VERSION = 2
+
+CALIBRATION_POLICIES = ("static", "streaming")
+
+
+def policy_fingerprint(spec: "RouteSpec") -> str:
+    """Short stable digest of a policy: sha256 over the spec's canonical
+    (sorted-key) JSON. State halves carry it so a replica refuses state
+    minted under any other policy — cheaper to compare and to log than
+    the full spec dict, and unlike object identity it survives the
+    JSON round trip."""
+    payload = spec.to_json(sort_keys=True)
+    return hashlib.sha256(payload.encode("utf-8")).hexdigest()[:16]
+
+
+def _float_tuple(xs) -> tuple[float, ...]:
+    return tuple(float(x) for x in xs)
+
+
+@dataclasses.dataclass(frozen=True)
+class CalibrationSpec:
+    """How thresholds are maintained while serving.
+
+    ``static``    — thresholds are fixed at whatever the spec says.
+    ``streaming`` — a drift-aware :class:`~repro_torch.core.streaming_calibrate.\
+StreamingCalibrator` watches live tier shares and hot-swaps thresholds
+    (knobs mirror its constructor).
+    """
+
+    policy: str = "static"
+    target_shares: Optional[tuple[float, ...]] = None
+    window: int = 4096
+    min_samples: int = 256
+    tolerance: float = 0.05
+    cooldown: Optional[int] = None
+
+    def __post_init__(self):
+        if self.policy not in CALIBRATION_POLICIES:
+            raise ValueError(f"unknown calibration policy {self.policy!r}; "
+                             f"choose from {CALIBRATION_POLICIES}")
+        # Mirror the StreamingCalibrator/SlidingWindow invariants so an
+        # invalid policy fails at spec construction (and from_json), not
+        # later inside build().
+        if self.window < 2:
+            raise ValueError(f"window must be >= 2, got {self.window}")
+        if self.min_samples < 2:
+            raise ValueError(f"min_samples must be >= 2, "
+                             f"got {self.min_samples}")
+        if self.min_samples > self.window:
+            raise ValueError(
+                f"min_samples ({self.min_samples}) > window "
+                f"({self.window}) can never be reached — the window holds "
+                f"at most `window` samples, so calibration would silently "
+                f"never fire")
+        if not 0.0 < self.tolerance < 1.0:
+            raise ValueError(f"tolerance must be in (0, 1), "
+                             f"got {self.tolerance}")
+        if self.cooldown is not None and self.cooldown < 0:
+            raise ValueError(f"cooldown must be >= 0, got {self.cooldown}")
+        if self.target_shares is not None:
+            object.__setattr__(self, "target_shares",
+                               _float_tuple(self.target_shares))
+        if self.policy == "streaming":
+            if self.target_shares is None:
+                raise ValueError("streaming calibration requires "
+                                 "target_shares (one per tier, sum to 1)")
+            s = self.target_shares
+            if any(x < 0 for x in s) or abs(sum(s) - 1.0) > 1e-6:
+                raise ValueError(f"target_shares must be >= 0 and sum to 1, "
+                                 f"got {s}")
+
+    def to_dict(self) -> dict:
+        return {
+            "policy": self.policy,
+            "target_shares": (None if self.target_shares is None
+                              else list(self.target_shares)),
+            "window": self.window,
+            "min_samples": self.min_samples,
+            "tolerance": self.tolerance,
+            "cooldown": self.cooldown,
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class CostSpec:
+    """$-cost accounting knobs (maps onto :class:`repro_torch.core.cost.CostModel`).
+
+    ``cost_per_mtok = None`` means the paper's Table-4 pricing table; a
+    mapping is normalized to a sorted item tuple so the frozen spec stays
+    hashable (a policy value must be usable as a dict key / set member).
+    """
+
+    cost_per_mtok: Optional[Mapping[str, float]] = None
+    n_triples: int = 100
+    output_tokens: int = 120
+
+    def __post_init__(self):
+        if self.cost_per_mtok is not None:
+            object.__setattr__(
+                self, "cost_per_mtok",
+                tuple(sorted((str(k), float(v))
+                             for k, v in dict(self.cost_per_mtok).items())))
+        if self.n_triples < 0:
+            raise ValueError(f"n_triples must be >= 0, got {self.n_triples}")
+        if self.output_tokens < 0:
+            raise ValueError(f"output_tokens must be >= 0, "
+                             f"got {self.output_tokens}")
+
+    def build(self) -> CostModel:
+        kw: dict[str, Any] = {"n_triples": self.n_triples,
+                              "output_tokens": self.output_tokens}
+        if self.cost_per_mtok is not None:
+            kw["cost_per_mtok"] = dict(self.cost_per_mtok)
+        return CostModel(**kw)
+
+    def to_dict(self) -> dict:
+        return {
+            "cost_per_mtok": (None if self.cost_per_mtok is None
+                              else dict(self.cost_per_mtok)),
+            "n_triples": self.n_triples,
+            "output_tokens": self.output_tokens,
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class RouteSpec:
+    """The entire routing policy as one frozen, JSON-round-trippable value.
+
+    ``tier_names`` are display/telemetry labels (``len(thresholds) + 1``
+    of them, smallest model first); ``tier_models`` are the cost-model
+    keys (default: the names themselves, which matches the seed examples
+    where names ARE paper model ids like ``qwen7b``).
+    """
+
+    metric: str = "gini"
+    thresholds: tuple[float, ...] = (0.0,)
+    cumulative_p: float = 0.95
+    top_k: int = 100
+    tier_names: tuple[str, ...] = ("small", "large")
+    tier_models: Optional[tuple[str, ...]] = None
+    backend: str = "auto"
+    # Batch-size crossover of the ``auto`` backend: batches below this go
+    # to the single-program XLA oracle, at/above it to the fused kernels.
+    # Policy, not environment — serialized so every replica routes the
+    # same request batch the same way. (Added with a default, so
+    # schema-version-1 payloads without the key still load.)
+    crossover_batch: int = _backends.DEFAULT_CROSSOVER_BATCH
+    micro_batch: int = 8
+    calibration: CalibrationSpec = dataclasses.field(
+        default_factory=CalibrationSpec)
+    cost: CostSpec = dataclasses.field(default_factory=CostSpec)
+    # Load-aware admission control (cost-budget feedback + SLO tier-
+    # spill); None disables it and reproduces pre-admission routing
+    # bit-for-bit. (Added with a default, so schema-version-1 payloads
+    # without the key still load.)
+    admission: Optional[AdmissionSpec] = None
+    # Routing policy: what the session DOES with the skew metrics
+    # (`repro_torch.policies` registry). None selects the default threshold
+    # policy — today's compare, bit-for-bit — and is OMITTED from the
+    # serialized dict so pre-policy payloads, envelopes, and fingerprints
+    # are byte-identical. (Added with a default, so schema-version-1
+    # payloads without the key still load.)
+    policy: Optional[PolicySpec] = None
+    schema_version: int = SCHEMA_VERSION
+
+    def __post_init__(self):
+        if self.schema_version != SCHEMA_VERSION:
+            raise ValueError(
+                f"unsupported RouteSpec schema_version "
+                f"{self.schema_version!r}; this build understands "
+                f"version {SCHEMA_VERSION}")
+        if not isinstance(self.calibration, CalibrationSpec):
+            raise TypeError("calibration must be a CalibrationSpec")
+        if not isinstance(self.cost, CostSpec):
+            raise TypeError("cost must be a CostSpec")
+        object.__setattr__(self, "thresholds", _float_tuple(self.thresholds))
+        object.__setattr__(self, "tier_names",
+                           tuple(str(n) for n in self.tier_names))
+        if self.tier_models is not None:
+            object.__setattr__(self, "tier_models",
+                               tuple(str(m) for m in self.tier_models))
+        # Router invariants: inherit every RouterConfig check by building one.
+        router = self.router_config()
+        if len(self.tier_names) != router.n_tiers:
+            raise ValueError(f"{router.n_tiers} tiers "
+                             f"(len(thresholds) + 1) but "
+                             f"{len(self.tier_names)} tier_names")
+        if (self.tier_models is not None
+                and len(self.tier_models) != router.n_tiers):
+            raise ValueError(f"{router.n_tiers} tiers but "
+                             f"{len(self.tier_models)} tier_models")
+        if self.micro_batch < 1:
+            raise ValueError(f"micro_batch must be >= 1, "
+                             f"got {self.micro_batch}")
+        if self.crossover_batch < 1:
+            raise ValueError(f"crossover_batch must be >= 1, "
+                             f"got {self.crossover_batch}")
+        if (_backends.resolve_backend_name(self.backend)
+                not in _backends.available_backends()):
+            raise ValueError(
+                f"unknown difficulty backend {self.backend!r}; "
+                f"choose from {_backends.available_backends()}")
+        if (self.calibration.policy == "streaming"
+                and len(self.calibration.target_shares) != router.n_tiers):
+            raise ValueError(
+                f"{router.n_tiers} tiers but "
+                f"{len(self.calibration.target_shares)} calibration "
+                f"target_shares")
+        if self.admission is not None:
+            if not isinstance(self.admission, AdmissionSpec):
+                raise TypeError("admission must be an AdmissionSpec or None")
+            if self.calibration.policy != "streaming":
+                raise ValueError(
+                    "admission control requires streaming calibration — "
+                    "its window is the quantile source for budget re-fits "
+                    "and the spill marginal band; set "
+                    "calibration=CalibrationSpec(policy='streaming', ...)")
+            if router.n_tiers < 2:
+                raise ValueError("admission control needs >= 2 tiers "
+                                 "(there is nowhere to spill)")
+        if self.policy is not None:
+            if not isinstance(self.policy, PolicySpec):
+                raise TypeError("policy must be a PolicySpec or None")
+            # Cross-field invariants (tier counts, top_k bounds) live on
+            # the policy spec itself.
+            self.policy.validate(self)
+
+    # -- derived views --------------------------------------------------------
+
+    @property
+    def n_tiers(self) -> int:
+        return len(self.thresholds) + 1
+
+    def router_config(self) -> RouterConfig:
+        return RouterConfig(metric=self.metric, thresholds=self.thresholds,
+                            cumulative_p=self.cumulative_p, top_k=self.top_k)
+
+    def cost_model(self) -> CostModel:
+        return self.cost.build()
+
+    def models(self) -> tuple[str, ...]:
+        return self.tier_models if self.tier_models is not None \
+            else self.tier_names
+
+    def with_thresholds(self, thresholds: Sequence[float]) -> "RouteSpec":
+        """The hot-swap primitive: same policy, new plain-float thresholds."""
+        return dataclasses.replace(self, thresholds=_float_tuple(thresholds))
+
+    # -- serialization --------------------------------------------------------
+
+    def to_dict(self) -> dict:
+        d = {
+            "schema_version": self.schema_version,
+            "metric": self.metric,
+            "thresholds": list(self.thresholds),
+            "cumulative_p": self.cumulative_p,
+            "top_k": self.top_k,
+            "tier_names": list(self.tier_names),
+            "tier_models": (None if self.tier_models is None
+                            else list(self.tier_models)),
+            "backend": self.backend,
+            "crossover_batch": self.crossover_batch,
+            "micro_batch": self.micro_batch,
+            "calibration": self.calibration.to_dict(),
+            "cost": self.cost.to_dict(),
+            "admission": (None if self.admission is None
+                          else self.admission.to_dict()),
+        }
+        # Omitted (not null) when default: keeps pre-policy payloads,
+        # snapshot-envelope policy halves, and policy fingerprints
+        # byte-identical to builds that predate the policy layer.
+        if self.policy is not None:
+            d["policy"] = self.policy.to_dict()
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "RouteSpec":
+        d = dict(d)
+        version = d.get("schema_version", SCHEMA_VERSION)
+        if version != SCHEMA_VERSION:
+            raise ValueError(
+                f"unsupported RouteSpec schema_version {version!r}; "
+                f"this build understands version {SCHEMA_VERSION}")
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown RouteSpec fields {sorted(unknown)}; "
+                             f"known fields: {sorted(known)}")
+        calib = d.get("calibration")
+        if isinstance(calib, Mapping):
+            ck = {f.name for f in dataclasses.fields(CalibrationSpec)}
+            unknown = set(calib) - ck
+            if unknown:
+                raise ValueError(f"unknown CalibrationSpec fields "
+                                 f"{sorted(unknown)}")
+            ts = calib.get("target_shares")
+            d["calibration"] = CalibrationSpec(
+                **{**dict(calib),
+                   "target_shares": None if ts is None else tuple(ts)})
+        cost = d.get("cost")
+        if isinstance(cost, Mapping):
+            ck = {f.name for f in dataclasses.fields(CostSpec)}
+            unknown = set(cost) - ck
+            if unknown:
+                raise ValueError(f"unknown CostSpec fields {sorted(unknown)}")
+            d["cost"] = CostSpec(**dict(cost))
+        admission = d.get("admission")
+        if isinstance(admission, Mapping):
+            d["admission"] = AdmissionSpec.from_dict(admission)
+        policy = d.get("policy")
+        if isinstance(policy, Mapping):
+            d["policy"] = policy_spec_from_dict(policy)
+        for key in ("thresholds", "tier_names", "tier_models"):
+            if d.get(key) is not None:
+                d[key] = tuple(d[key])
+        return cls(**d)
+
+    def to_json(self, **dumps_kwargs) -> str:
+        return json.dumps(self.to_dict(), **dumps_kwargs)
+
+    @classmethod
+    def from_json(cls, payload: str) -> "RouteSpec":
+        return cls.from_dict(json.loads(payload))
+
+    @classmethod
+    def from_router_config(cls, config: RouterConfig,
+                           tier_names: Sequence[str],
+                           **overrides) -> "RouteSpec":
+        """Lift an old-API ``RouterConfig`` (+ tier names) into a spec."""
+        return cls(metric=config.metric, thresholds=config.thresholds,
+                   cumulative_p=config.cumulative_p, top_k=config.top_k,
+                   tier_names=tuple(tier_names), **overrides)

@@ -1,0 +1,46 @@
+"""SkewRoute core: the paper's primary contribution.
+
+Training-free LLM routing for KG-RAG via score skewness of retrieved
+context — skewness metrics, threshold router, training-free calibration,
+cost model, and KGQA evaluation.
+"""
+
+from repro_torch.core.skewness import (  # noqa: F401
+    METRICS,
+    all_metrics,
+    area_metric,
+    cumulative_k,
+    difficulty,
+    entropy_metric,
+    gini_metric,
+    normalize_minmax,
+    normalize_prob,
+)
+from repro_torch.core.router import (  # noqa: F401
+    RetrievedRouteResult,
+    RouteBatchResult,
+    RouterConfig,
+    RoutingStats,
+    difficulty_from_metrics,
+    route,
+    route_all_metrics,
+    route_binary,
+    route_from_difficulty,
+    route_retrieved,
+    route_retrieved_staged,
+)
+from repro_torch.core.streaming_calibrate import (  # noqa: F401
+    DriftEvent,
+    SlidingWindow,
+    StreamingCalibrator,
+)
+from repro_torch.core.calibrate import (  # noqa: F401
+    SweepPoint,
+    calibrate_multi_tier,
+    calibrate_threshold,
+    oracle_curve,
+    random_mix_curve,
+    sweep_thresholds,
+)
+from repro_torch.core.cost import CostModel, PAPER_COST_PER_MTOK, PAPER_QUALITY  # noqa: F401
+from repro_torch.core.metrics import batch_metrics, f1_score, hit_at_1  # noqa: F401

@@ -1,0 +1,216 @@
+"""Request-scoped tracing: a bounded event log of spans + events.
+
+A :class:`Span` is one timed stage (``submit``, ``dispatch``,
+``sync_round``); spans nest via a thread-local stack so a
+``dispatch`` span opened inside a ``submit`` span records the parent
+id — the export is a forest of span trees, one tree per root span
+(= one ``trace`` id).
+
+The serving stack records at BATCH granularity: a ``dispatch`` event
+carries ``first_id`` + the per-row tier list rather than opening one
+span per request — that keeps tracing O(batches) on the fused fast
+path while :func:`repro_torch.obs.export.request_timelines` still
+reconstructs a complete per-request timeline from the id ranges.
+
+Ids are sequential ints (no RNG, no wall-clock) so seeded runs are
+byte-deterministic. The event buffer is bounded (``max_events``,
+default 200k); overflow drops NEW events and counts them in
+``n_dropped`` — a trace with holes is reported, never silently grown
+without bound.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.obs.clock import Clock, MonotonicClock
+
+__all__ = ["Span", "Tracer", "NullTracer", "NULL_SPAN"]
+
+DEFAULT_MAX_EVENTS = 200_000
+
+
+def _jsonable(v):
+    """Cheap JSON coercion for event attributes."""
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if isinstance(v, (np.integer,)):
+        return int(v)
+    if isinstance(v, (np.floating,)):
+        return float(v)
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    if isinstance(v, dict):
+        return {str(k): _jsonable(x) for k, x in v.items()}
+    return repr(v)
+
+
+class Span:
+    """One timed stage. Use as a context manager:
+
+        with tracer.span("submit", batch=64) as sp:
+            sp.event("spill", request_ids=[...])
+    """
+
+    __slots__ = ("tracer", "trace_id", "span_id", "parent_id", "name")
+
+    def __init__(self, tracer: "Tracer", trace_id: int, span_id: int,
+                 parent_id: Optional[int], name: str):
+        self.tracer = tracer
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.name = name
+
+    def event(self, name: str, **attrs) -> None:
+        self.tracer._record("event", self.trace_id, self.span_id, name, attrs)
+
+    def __enter__(self) -> "Span":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.tracer._end(self)
+
+
+class _NullSpan:
+    """Shared no-op span handed out by the disabled tracer."""
+
+    __slots__ = ()
+    trace_id = span_id = parent_id = 0
+    name = ""
+
+    def event(self, name: str, **attrs) -> None:
+        pass
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        pass
+
+
+NULL_SPAN = _NullSpan()
+
+
+class Tracer:
+
+    enabled = True
+
+    def __init__(self, clock: Optional[Clock] = None,
+                 max_events: int = DEFAULT_MAX_EVENTS):
+        self.clock = clock or MonotonicClock()
+        self.max_events = int(max_events)
+        self._events: list[dict] = []
+        self.n_dropped = 0
+        self._lock = threading.Lock()
+        self._next_trace = 1
+        self._next_span = 1
+        self._tls = threading.local()
+
+    # -- recording ------------------------------------------------------------
+
+    def _stack(self) -> list:
+        st = getattr(self._tls, "stack", None)
+        if st is None:
+            st = self._tls.stack = []
+        return st
+
+    def _record(self, kind: str, trace_id: int, span_id: Optional[int],
+                name: str, attrs: Optional[dict],
+                parent_id: Optional[int] = None) -> None:
+        rec = {"ts": round(self.clock.now(), 9), "kind": kind,
+               "trace": trace_id, "span": span_id, "name": name}
+        if kind == "span_start":
+            rec["parent"] = parent_id
+        if attrs:
+            rec["attrs"] = {str(k): _jsonable(v) for k, v in attrs.items()}
+        with self._lock:
+            if len(self._events) >= self.max_events:
+                self.n_dropped += 1
+                return
+            self._events.append(rec)
+
+    def span(self, name: str, **attrs) -> Span:
+        stack = self._stack()
+        with self._lock:
+            span_id = self._next_span
+            self._next_span += 1
+            if stack:
+                parent = stack[-1]
+                trace_id, parent_id = parent.trace_id, parent.span_id
+            else:
+                trace_id, parent_id = self._next_trace, None
+                self._next_trace += 1
+        sp = Span(self, trace_id, span_id, parent_id, name)
+        self._record("span_start", trace_id, span_id, name, attrs,
+                     parent_id=parent_id)
+        stack.append(sp)
+        return sp
+
+    def _end(self, sp: Span) -> None:
+        stack = self._stack()
+        if stack and stack[-1] is sp:
+            stack.pop()
+        elif sp in stack:  # exited out of order — drop through to it
+            while stack and stack[-1] is not sp:
+                stack.pop()
+            if stack:
+                stack.pop()
+        self._record("span_end", sp.trace_id, sp.span_id, sp.name, None)
+
+    def current_span(self) -> Optional[Span]:
+        stack = self._stack()
+        return stack[-1] if stack else None
+
+    def event(self, name: str, **attrs) -> None:
+        """Standalone event, attached to the current span if one is
+        open (else trace/span 0 — a global event)."""
+        cur = self.current_span()
+        if cur is not None:
+            self._record("event", cur.trace_id, cur.span_id, name, attrs)
+        else:
+            self._record("event", 0, None, name, attrs)
+
+    # -- reading --------------------------------------------------------------
+
+    def events(self) -> list[dict]:
+        with self._lock:
+            return list(self._events)
+
+    def __len__(self) -> int:
+        return len(self._events)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+            self.n_dropped = 0
+
+
+class NullTracer:
+    """Disabled tracer: spans are the shared no-op span, events vanish."""
+
+    enabled = False
+    n_dropped = 0
+
+    def span(self, name: str, **attrs) -> _NullSpan:
+        return NULL_SPAN
+
+    def event(self, name: str, **attrs) -> None:
+        pass
+
+    def current_span(self) -> None:
+        return None
+
+    def events(self) -> list:
+        return []
+
+    def __len__(self) -> int:
+        return 0
+
+    def clear(self) -> None:
+        pass

@@ -1,0 +1,303 @@
+"""The pipelined serving flow: dispatch → micro-batch queues → engines,
+with streaming recalibration and (optionally) load-aware admission
+control folded in.
+
+One :class:`ServingPipeline` owns
+
+  * a :class:`~repro_torch.serving.router_service.SkewRouteDispatcher` running
+    the fused skew-metrics kernel over whole request batches (with an
+    optional drift-aware :class:`~repro_torch.core.streaming_calibrate.\
+StreamingCalibrator` hot-swapping thresholds inline);
+  * one :class:`~repro_torch.serving.scheduler.MicroBatchQueue` per tier, so
+    tier engines always execute full, shape-stable micro-batches;
+  * per-tier runner callables (a tier-engine bank's ``runners()`` in
+    production, fakes in tests);
+  * optionally an :class:`~repro_torch.serving.admission.AdmissionController`
+    (``admission=``): each submit runs one feedback tick (pressure /
+    budget → threshold hot-swap) and, while spill is engaged, demotes
+    marginal top-tier requests one tier before they queue. With
+    ``admission=None`` the flow is exactly the pre-admission pipeline —
+    bit-for-bit identical routing decisions;
+  * telemetry: queue depths, executed batches, recalibration count,
+    spill count, tier mix.
+
+The flow is synchronous by design — the parallelism lives inside the
+device kernels and engine steps; the host-side control plane stays a
+deterministic, testable state machine (same philosophy as TierScheduler's
+simulated clocks).
+
+Tier accounting with admission enabled: ``dispatcher.stats.tier_counts``
+records the routing *decisions* (pre-spill) while
+``pipeline.telemetry.tier_counts`` records the *executed* mix
+(post-spill) — the gap between them is exactly the spilled traffic, and
+realized spend follows the executed mix (the admission controller's
+$/query EWMA; ``dispatcher.stats.total_cost`` stays decision-priced).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.obs import NULL_OBS, int_keyed, str_keyed
+from repro_torch.serving import _deprecation
+from repro_torch.serving.admission import AdmissionController
+from repro_torch.serving.router_service import (BatchDispatchResult,
+                                          SkewRouteDispatcher)
+from repro_torch.serving.scheduler import MicroBatchQueue
+
+
+@dataclasses.dataclass
+class ExecutedBatch:
+    """One micro-batch run on a tier engine (telemetry + test hook)."""
+
+    tier: int
+    size: int
+    result: object  # whatever the tier runner returned
+
+
+@dataclasses.dataclass
+class PipelineTelemetry:
+    """Pipeline counters. Serialization contract (state_dict): counters
+    ONLY — pending micro-batch queue payloads are arbitrary Python
+    objects and are NOT part of telemetry state. The invariant
+    ``n_submitted == n_executed + pending queue depth`` therefore only
+    survives a state round-trip on DRAINED queues: flush() before
+    saving, and restore through :meth:`ServingPipeline.load_telemetry`
+    (which refuses non-empty queues) so pending items are never double-
+    nor zero-executed."""
+
+    n_submitted: int = 0
+    n_executed: int = 0
+    n_microbatches: int = 0
+    n_recalibrations: int = 0
+    n_spilled: int = 0
+    tier_counts: dict = dataclasses.field(default_factory=dict)
+
+    def snapshot(self, queues: dict[int, MicroBatchQueue]) -> dict:
+        state = self.state_dict()
+        state["tier_counts"] = int_keyed(state["tier_counts"])
+        state["queue_depths"] = {t: len(q) for t, q in queues.items()}
+        return state
+
+    # -- serializable state (the single source of the counter list) ----------
+
+    def state_dict(self) -> dict:
+        return {
+            "n_submitted": self.n_submitted,
+            "n_executed": self.n_executed,
+            "n_microbatches": self.n_microbatches,
+            "n_recalibrations": self.n_recalibrations,
+            "n_spilled": self.n_spilled,
+            "tier_counts": str_keyed(self.tier_counts),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.n_submitted = int(state["n_submitted"])
+        self.n_executed = int(state["n_executed"])
+        self.n_microbatches = int(state["n_microbatches"])
+        self.n_recalibrations = int(state["n_recalibrations"])
+        # absent in pre-admission snapshots; those never spilled
+        self.n_spilled = int(state.get("n_spilled", 0))
+        self.tier_counts = int_keyed(state["tier_counts"])
+
+
+class ServingPipeline:
+    """Batched dispatch through per-tier micro-batch queues to runners."""
+
+    def __init__(self, dispatcher: SkewRouteDispatcher,
+                 runners: dict[int, Callable[[list], object]],
+                 micro_batch: int = 8,
+                 admission: Optional[AdmissionController] = None,
+                 obs=None):
+        _deprecation.warn_once(
+            "ServingPipeline",
+            "hand-wiring ServingPipeline is deprecated; declare the policy "
+            "as a repro_torch.api.RouteSpec and call repro_torch.api.build(spec, "
+            "runners=...) (see README 'Routing fast path')")
+        n_tiers = dispatcher.router.n_tiers
+        missing = set(range(n_tiers)) - set(runners)
+        if missing:
+            raise ValueError(f"runners missing for tiers {sorted(missing)}")
+        if admission is not None and dispatcher.calibrator is None:
+            raise ValueError("admission control requires a dispatcher with "
+                             "an attached streaming calibrator")
+        self.dispatcher = dispatcher
+        self.runners = dict(runners)
+        self.admission = admission
+        self.queues = {t: MicroBatchQueue(t, micro_batch)
+                       for t in range(n_tiers)}
+        self.telemetry = PipelineTelemetry(
+            tier_counts={t: 0 for t in range(n_tiers)})
+        self.executed: list[ExecutedBatch] = []
+        # Observability mirrors. The per-tier `_queued_ids` shadow queues
+        # (obs-enabled only) track WHICH request ids sit in each
+        # MicroBatchQueue — both are strict FIFO, so the ids popped in
+        # `_run` name exactly the payloads in that micro-batch without
+        # touching the runner payload contract.
+        self.obs = obs if obs is not None else getattr(
+            dispatcher, "obs", NULL_OBS)
+        m = self.obs.metrics
+        self._m_submitted = m.counter("pipeline_submitted_total")
+        self._m_executed = m.counter("pipeline_executed_total")
+        self._m_microbatches = m.counter("pipeline_microbatches_total")
+        self._m_recal = m.counter("pipeline_recalibrations_total")
+        self._m_spilled = m.counter("pipeline_spilled_total")
+        self._m_tiers = [m.counter("pipeline_tier_executed_total",
+                                   tier=str(t)) for t in range(n_tiers)]
+        self._g_pending = [m.gauge("pipeline_queue_depth", tier=str(t))
+                           for t in range(n_tiers)]
+        self._h_run_s = m.histogram("pipeline_run_seconds")
+        self._queued_ids: dict[int, list] = {t: [] for t in range(n_tiers)}
+
+    def _obs_resync(self) -> None:
+        """Re-point the registry's pipeline mirrors at the (restored)
+        telemetry counters; called by the session after restore."""
+        if not self.obs.enabled:
+            return
+        t = self.telemetry
+        self._m_submitted.value = t.n_submitted
+        self._m_executed.value = t.n_executed
+        self._m_microbatches.value = t.n_microbatches
+        self._m_recal.value = t.n_recalibrations
+        self._m_spilled.value = t.n_spilled
+        for tier, mt in enumerate(self._m_tiers):
+            mt.value = t.tier_counts.get(tier, 0)
+        for tier, g in enumerate(self._g_pending):
+            g.set(len(self.queues[tier]))
+
+    # -- internals ------------------------------------------------------------
+
+    def _run(self, tier: int, batch: list) -> None:
+        obs_on = self.obs.enabled
+        rids = None
+        if obs_on:
+            q = self._queued_ids[tier]
+            rids, self._queued_ids[tier] = q[:len(batch)], q[len(batch):]
+            t0 = self.obs.clock.now()
+        result = self.runners[tier](batch)
+        self.executed.append(ExecutedBatch(tier=tier, size=len(batch),
+                                           result=result))
+        self.telemetry.n_microbatches += 1
+        self.telemetry.n_executed += len(batch)
+        self._m_microbatches.inc()
+        self._m_executed.inc(len(batch))
+        if obs_on:
+            self._h_run_s.observe(self.obs.clock.now() - t0)
+            self._g_pending[tier].set(len(self.queues[tier]))
+            self.obs.tracer.event("execute", tier=tier, request_ids=rids,
+                                  n=len(batch))
+
+    # -- the flow -------------------------------------------------------------
+
+    def submit(self, scores_desc: np.ndarray,
+               payloads: Optional[Sequence] = None,
+               n_valid: Optional[np.ndarray] = None,
+               self_scores: Optional[np.ndarray] = None
+               ) -> BatchDispatchResult:
+        """Dispatch a request batch and pump full micro-batches.
+
+        ``scores_desc``: [B, K] descending top-K retrieval scores (numpy
+        or a tensor on any device).
+        ``payloads``: per-request items handed to the tier runner (prompt
+        token arrays in production); defaults to the dispatch records.
+        ``self_scores``: optional [B] engine self-uncertainty feeding
+        confidence-aware routing policies (cascade).
+        Returns the dispatch result (tiers, difficulty, all four metrics,
+        whether a drift hot-swap fired). With an admission controller
+        attached, requests execute on ``admission.apply``'s possibly
+        down-spilled tiers; the returned result still reports the
+        dispatcher's decisions.
+        """
+        scores = scores_desc if hasattr(scores_desc, "shape") \
+            else np.asarray(scores_desc)
+        if payloads is not None and len(payloads) != scores.shape[0]:
+            raise ValueError(f"{scores.shape[0]} score rows but "
+                             f"{len(payloads)} payloads")
+        obs_on = self.obs.enabled
+        with self.obs.tracer.span("submit", batch=int(scores.shape[0])):
+            res: BatchDispatchResult = self.dispatcher.dispatch_batch(
+                scores, n_valid=n_valid, return_details=True,
+                self_scores=self_scores)
+            exec_tiers = res.tiers
+            if self.admission is not None:
+                new_config = self.admission.control_step()
+                if new_config is not None:
+                    self.dispatcher.apply_config(new_config)
+                    self.telemetry.n_recalibrations += 1
+                    self._m_recal.inc()
+                # request_cost (when the policy priced per request —
+                # cascade stage bills, depth-priced prompts) flows into
+                # the budget EWMA so admission reacts to what the
+                # decision actually costs, not the flat per-tier price.
+                exec_tiers, n_spilled = self.admission.apply(
+                    res.tiers, res.difficulty, request_cost=res.request_cost)
+                self.telemetry.n_spilled += n_spilled
+                self._m_spilled.inc(n_spilled)
+                if obs_on and n_spilled:
+                    moved = np.flatnonzero(exec_tiers != res.tiers)
+                    self.obs.tracer.event(
+                        "spill",
+                        request_ids=[res.first_id + int(i) for i in moved],
+                        **{"from": res.tiers[moved].tolist(),
+                           "to": exec_tiers[moved].tolist()})
+            # per-request records are lazy; only build them when they ARE
+            # the payloads — with explicit payloads the tier array is all
+            # we need
+            items = payloads if payloads is not None else res.records
+            self.telemetry.n_submitted += len(items)
+            self._m_submitted.inc(len(items))
+            if res.recalibrated:
+                self.telemetry.n_recalibrations += 1
+                self._m_recal.inc()
+            for i, (tier, item) in enumerate(zip(exec_tiers.tolist(), items)):
+                self.telemetry.tier_counts[tier] += 1
+                self._m_tiers[tier].inc()
+                if obs_on:
+                    self._queued_ids[tier].append(res.first_id + i)
+                for full in self.queues[tier].push(item):
+                    self._run(tier, full)
+            if obs_on:
+                for tier, g in enumerate(self._g_pending):
+                    g.set(len(self.queues[tier]))
+        return res
+
+    def flush(self) -> int:
+        """Drain partial micro-batches (burst tail / shutdown); returns
+        the number of requests executed."""
+        drained = 0
+        with self.obs.tracer.span("flush"):
+            for tier, q in self.queues.items():
+                tail = q.flush()
+                if tail:
+                    self._run(tier, tail)
+                    drained += len(tail)
+        return drained
+
+    def pending(self) -> int:
+        """Requests sitting in partial micro-batches (not yet executed)."""
+        return sum(len(q) for q in self.queues.values())
+
+    def load_telemetry(self, state: dict) -> None:
+        """Restore telemetry counters (see the PipelineTelemetry
+        contract). Queue contents do not round-trip through telemetry
+        state, so restoring over pending payloads would desync
+        ``n_submitted`` from what later flushes execute — refuse it."""
+        depths = {t: len(q) for t, q in self.queues.items() if len(q)}
+        if depths:
+            raise RuntimeError(
+                f"cannot restore telemetry over pending micro-batch "
+                f"payloads (queue depths {depths}); flush() first")
+        self.telemetry.load_state_dict(state)
+        # executed-batch history must match the restored counters
+        self.executed.clear()
+        self._queued_ids = {t: [] for t in self.queues}
+        self._obs_resync()
+
+    def stats(self) -> dict:
+        out = self.telemetry.snapshot(self.queues)
+        if self.admission is not None:
+            out["admission"] = self.admission.telemetry()
+        return out

@@ -1,0 +1,483 @@
+"""SkewRoute dispatcher: retrieval scores in, tier assignment out.
+
+This is the paper's Algorithm 1 as a serving component, running on the
+FUSED fast path. Per batch:
+
+  1. the retrieval stage hands over the top-K triple scores (descending,
+     optionally ragged via per-row ``n_valid``);
+  2. the attached :class:`repro_torch.api.backends.DifficultyBackend` (the
+     batch-size crossover ``auto`` by default: the oracle for small
+     batches, the fused CUDA kernels at and above it) computes all four
+     difficulty metrics in one call — the configured metric is a column
+     select;
+  3. the threshold router picks tiers; telemetry (tier counts, expected
+     $ cost, mean difficulty) streams to the stats sink;
+  4. difficulty samples feed the attached streaming calibrator
+     (``core.streaming_calibrate``), which hot-swaps the thresholds when
+     live traffic drifts off the calibrated tier shares;
+  5. requests join their tier's micro-batch queue
+     (``serving/scheduler.MicroBatchQueue`` via ``serving/pipeline``).
+
+Batch shapes are bucketed (pad to the next bucket, slice the pad off) so
+arbitrary request-batch sizes reuse a handful of launch shapes. Scores and
+candidate features move to the dispatcher's device (CUDA unless built
+with ``device="cpu"``); results come back as numpy arrays.
+
+Thresholds stay *hot-swappable*: both the offline calibrator
+(core/calibrate.py) and the online one can re-fit them from unlabeled
+samples without touching the serving path — the training-free property
+operationalized.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import threading
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.calibrate import calibrate_multi_tier
+from repro_torch.core.cost import CostModel
+from repro_torch.core.router import RouteBatchResult, RouterConfig
+from repro_torch.core.streaming_calibrate import StreamingCalibrator
+from repro_torch.kernels.device import DeviceLike, resolve_device, to_numpy
+from repro_torch.obs import NULL_OBS, str_keyed, int_keyed
+from repro_torch.serving import _deprecation
+from repro_torch.serving.scheduler import bucket_size
+
+BATCH_BUCKETS = (8, 64, 256, 1024, 4096)
+
+
+def _on(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """numpy or tensor -> tensor of ``dtype`` on ``device`` (no copy
+    when it already is one)."""
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Zero-pad the leading (batch) axis up to ``rows``."""
+    if x.shape[0] == rows:
+        return x
+    return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
+
+
+@dataclasses.dataclass
+class DispatchRecord:
+    request_id: int
+    tier: int
+    difficulty: float
+    metric: str
+
+
+@dataclasses.dataclass
+class BatchDispatchResult:
+    """Per-batch fast-path output plus what the control plane did with it.
+
+    ``records`` is built lazily on first access: array-only consumers
+    (telemetry, the recsys example, bulk routing) never pay the
+    per-request Python object loop.
+    """
+
+    tiers: np.ndarray         # [B] int32
+    difficulty: np.ndarray    # [B] float32
+    metrics: np.ndarray       # [B, 4] float32 (area, cum_k, entropy, gini)
+    first_id: int = 0
+    metric: str = ""
+    recalibrated: bool = False
+    # Routing-policy extras (None under the default threshold policy):
+    # per-request $ the decision actually costs (cascades bill every
+    # stage attempted) and per-request retrieval depth.
+    request_cost: Optional[np.ndarray] = None
+    depths: Optional[np.ndarray] = None
+
+    @functools.cached_property
+    def records(self) -> list[DispatchRecord]:
+        return [DispatchRecord(request_id=self.first_id + i,
+                               tier=int(self.tiers[i]),
+                               difficulty=float(self.difficulty[i]),
+                               metric=self.metric)
+                for i in range(len(self.tiers))]
+
+
+@dataclasses.dataclass
+class RetrievedDispatchResult:
+    """End-to-end dispatch output: the routing decision plus the top-K
+    retrieval the fused program produced on the way (candidate indices
+    into the per-query feature rows, sigmoid scores, valid prefix)."""
+
+    result: BatchDispatchResult
+    indices: np.ndarray       # [B, K] int32
+    probs: np.ndarray         # [B, K] float32, descending
+    n_valid: np.ndarray       # [B] int32
+
+    @property
+    def tiers(self) -> np.ndarray:
+        return self.result.tiers
+
+
+@dataclasses.dataclass
+class DispatcherStats:
+    n_requests: int = 0
+    n_batches: int = 0
+    n_recalibrations: int = 0
+    tier_counts: dict = dataclasses.field(default_factory=dict)
+    total_cost: float = 0.0
+    mean_difficulty: float = 0.0  # running mean over all dispatched requests
+
+    @property
+    def large_call_ratio(self) -> float:
+        if not self.n_requests:
+            return 0.0
+        top = max(self.tier_counts) if self.tier_counts else 0
+        return self.tier_counts.get(top, 0) / self.n_requests
+
+    # -- serializable state (the single source of the counter list) ----------
+
+    def state_dict(self) -> dict:
+        return {
+            "n_requests": self.n_requests,
+            "n_batches": self.n_batches,
+            "n_recalibrations": self.n_recalibrations,
+            "tier_counts": str_keyed(self.tier_counts),
+            "total_cost": self.total_cost,
+            "mean_difficulty": self.mean_difficulty,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.n_requests = int(state["n_requests"])
+        self.n_batches = int(state["n_batches"])
+        self.n_recalibrations = int(state["n_recalibrations"])
+        self.tier_counts = int_keyed(state["tier_counts"])
+        self.total_cost = float(state["total_cost"])
+        self.mean_difficulty = float(state["mean_difficulty"])
+
+
+class SkewRouteDispatcher:
+    def __init__(self, router: RouterConfig, tier_names: Sequence[str],
+                 cost_model: Optional[CostModel] = None,
+                 calibrator: Optional[StreamingCalibrator] = None,
+                 backend=None, policy=None, obs=None,
+                 device: DeviceLike = None):
+        _deprecation.warn_once(
+            "SkewRouteDispatcher",
+            "hand-wiring SkewRouteDispatcher is deprecated; declare the "
+            "policy as a repro_torch.api.RouteSpec and call repro_torch.api.build(spec) "
+            "(see README 'Routing fast path')")
+        if len(tier_names) != router.n_tiers:
+            raise ValueError(f"{router.n_tiers} tiers but "
+                             f"{len(tier_names)} tier names")
+        # Environment, not policy: resolved per call, never serialized.
+        self.device = device
+        if backend is None:
+            # lazy import: repro_torch.api composes this class, not vice versa
+            from repro_torch.api.backends import make_backend
+            backend = make_backend("auto", device=device)
+        self.backend = backend
+        self.router = router
+        self.tier_names = list(tier_names)
+        self.cost_model = cost_model or CostModel()
+        self.calibrator = calibrator
+        if policy is None:
+            # lazy import for the same layering reason as the backend
+            from repro_torch.policies import build_policy
+            policy = build_policy(None, n_tiers=router.n_tiers,
+                                  tier_models=tier_names,
+                                  cost_model=self.cost_model)
+        self.policy = policy
+        self.stats = DispatcherStats(tier_counts={i: 0 for i in
+                                                  range(router.n_tiers)})
+        self._lock = threading.Lock()
+        self._next_id = 0
+        # Observability mirrors: instruments looked up ONCE here; every
+        # record below is a plain attribute bump (no-ops under NULL_OBS).
+        # DispatcherStats stays the serialization source; the registry is
+        # the live read surface (old accessors preserved as views).
+        self.obs = obs or NULL_OBS
+        m = self.obs.metrics
+        self._m_requests = m.counter("routing_requests_total")
+        self._m_batches = m.counter("routing_batches_total")
+        self._m_recal = m.counter("routing_recalibrations_total")
+        self._m_cost = m.counter("routing_cost_dollars_total")
+        self._m_mean_diff = m.gauge("routing_mean_difficulty")
+        self._m_dispatch_s = m.histogram("routing_dispatch_seconds")
+        self._m_tiers = [m.counter("routing_tier_decisions_total",
+                                   tier=str(t))
+                         for t in range(router.n_tiers)]
+
+    def _obs_resync(self) -> None:
+        """Point the registry's dispatcher mirrors at the (restored)
+        stats — called by the session after a state restore so the live
+        metrics agree with the restored counters."""
+        if not self.obs.enabled:
+            return
+        s = self.stats
+        self._m_requests.value = s.n_requests
+        self._m_batches.value = s.n_batches
+        self._m_recal.value = s.n_recalibrations
+        self._m_cost.value = s.total_cost
+        self._m_mean_diff.value = s.mean_difficulty
+        for t, mt in enumerate(self._m_tiers):
+            mt.value = s.tier_counts.get(t, 0)
+
+    # -- calibration ----------------------------------------------------------
+
+    def attach_calibrator(self, target_shares: Sequence[float],
+                          **knobs) -> StreamingCalibrator:
+        """Wire a drift-aware streaming calibrator into the dispatch flow."""
+        self.calibrator = StreamingCalibrator(self.router, target_shares,
+                                              **knobs)
+        return self.calibrator
+
+    def apply_config(self, new_router: RouterConfig,
+                     quantile_source=None) -> None:
+        """THE threshold hot-swap path — offline recalibration, the
+        streaming drift calibrator, the admission controller, and the
+        replica-sync merge all land here: swap the frozen config, keep
+        the calibrator's view coherent, count it — and re-fit the
+        routing policy's own cutoffs from the same sample set that
+        produced the thresholds (``quantile_source``; defaults to the
+        attached calibrator's window, replica sync passes its merged
+        fleet quantile), so threshold and policy calibration can never
+        diverge."""
+        with self._lock:
+            self.router = new_router
+            self.stats.n_recalibrations += 1
+            self._m_recal.inc()
+            if self.calibrator is not None:
+                self.calibrator.config = new_router
+            self._refit_policy_locked(quantile_source)
+        if self.obs.enabled:
+            self.obs.tracer.event(
+                "hot_swap", thresholds=list(new_router.thresholds),
+                metric=new_router.metric)
+
+    def _refit_policy_locked(self, quantile_source=None) -> None:
+        """Policy-cutoff refit half of a hot-swap; caller holds the lock."""
+        if not self.policy.needs_refit:
+            return
+        if quantile_source is None:
+            cal = self.calibrator
+            if cal is None or len(cal.window) < cal.min_samples:
+                return  # nothing trustworthy to fit from yet
+            quantile_source = cal.quantile_source()
+        self.policy.refit(quantile_source)
+
+    def recalibrate(self, calibration_scores: np.ndarray,
+                    tier_shares: Sequence[float]) -> RouterConfig:
+        """Hot-swap thresholds to hit new traffic shares (training-free)."""
+        new_router = calibrate_multi_tier(
+            _on(calibration_scores, torch.float32,
+                resolve_device(self.device)), tier_shares,
+            metric=self.router.metric, cumulative_p=self.router.cumulative_p)
+        self.apply_config(new_router)
+        return new_router
+
+    # -- dispatch -------------------------------------------------------------
+
+    def dispatch(self, scores_desc: np.ndarray,
+                 n_valid: Optional[int] = None) -> DispatchRecord:
+        """Route one request — same path, batch of one (bucketed to the
+        smallest batch bucket, like every other small batch)."""
+        nv = None if n_valid is None else np.asarray([n_valid])
+        scores = torch.as_tensor(scores_desc)[None]
+        return self.dispatch_batch(scores, n_valid=nv,
+                                   return_details=True).records[0]
+
+    def dispatch_batch(self, scores_desc: np.ndarray,
+                       n_valid: Optional[np.ndarray] = None,
+                       return_details: bool = False,
+                       self_scores: Optional[np.ndarray] = None):
+        """[B, K] (+ optional [B] n_valid) -> [B] tier ids.
+
+        The vectorized fast path: one fused kernel call per bucketed batch
+        (``scores_desc`` may be numpy or a tensor on any device). With
+        ``return_details=True`` returns a
+        :class:`BatchDispatchResult` carrying per-request records and the
+        full metric matrix (the pipeline and telemetry consumers).
+        ``self_scores``: optional [B] engine self-uncertainty (higher =
+        less confident) some policies (cascade) fold into the decision.
+        """
+        dev = resolve_device(self.device)
+        scores = _on(scores_desc, torch.float32, dev)
+        b, k = scores.shape
+        bpad = bucket_size(b, BATCH_BUCKETS)
+        scores = _pad_rows(scores, bpad)
+        # always pass a concrete n_valid (the reference's one-trace-per-
+        # bucket rule; here it keeps both backends on the ragged path)
+        nv = np.full(bpad, k, np.int32)
+        if n_valid is not None:
+            nv[:b] = np.asarray(n_valid, np.int32)
+        nv[b:] = 1  # padded rows: degenerate but well-defined
+        with self.obs.tracer.span("dispatch", batch=b):
+            obs_on = self.obs.enabled
+            t0 = self.obs.clock.now() if obs_on else 0.0
+            result: RouteBatchResult = self.backend.route_batch(
+                scores, self.router, n_valid=_on(nv, torch.int32, dev))
+            tiers = to_numpy(result.tiers[:b])
+            diff = to_numpy(result.difficulty[:b])
+            metrics = to_numpy(result.metrics[:b])
+            if obs_on:  # the copies to host synchronized the device above
+                self._m_dispatch_s.observe(self.obs.clock.now() - t0)
+
+            decision = self.policy.decide(tiers, diff, metrics,
+                                          self_scores=self_scores)
+            first_id, metric_name, recalibrated = self._record_batch(
+                decision.tiers, diff, decision, backend_tiers=tiers)
+        if not return_details:
+            return decision.tiers
+        return BatchDispatchResult(tiers=decision.tiers, difficulty=diff,
+                                   metrics=metrics, first_id=first_id,
+                                   metric=metric_name,
+                                   recalibrated=recalibrated,
+                                   request_cost=decision.request_cost,
+                                   depths=decision.depths)
+
+    def dispatch_retrieved(self, feats: np.ndarray, query_emb: np.ndarray,
+                           scorer_params, n_cand: Optional[np.ndarray] = None
+                           ) -> "RetrievedDispatchResult":
+        """End-to-end dispatch from candidate features: scoring -> top-k ->
+        skew -> decision on the device (see
+        `repro_torch.core.router.route_retrieved`) replaces the old
+        score-on-device / top-k-on-host / re-enter-device-for-metrics
+        staging. Telemetry and streaming calibration update exactly as
+        for :meth:`dispatch_batch`.
+
+        ``feats``: [B, N, Dt]; ``query_emb``: [B, Dq]; ``n_cand``:
+        optional [B] real candidate counts (ragged retrieval).
+        """
+        dev = resolve_device(self.device)
+        feats = _on(feats, torch.float32, dev)
+        b, k_feats, _ = feats.shape
+        bpad = bucket_size(b, BATCH_BUCKETS)
+        qemb = _on(query_emb, torch.float32, dev)
+        nc = np.full(bpad, k_feats, np.int32)
+        if n_cand is not None:
+            nc[:b] = np.asarray(n_cand, np.int32)
+        nc[b:] = 1  # padded rows: degenerate but well-defined
+        if not hasattr(self.backend, "route_retrieved"):
+            raise TypeError(
+                f"difficulty backend {self.backend.name!r} has no "
+                f"route_retrieved; end-to-end dispatch needs one of the "
+                f"built-in backends (oracle | pallas | fused | auto) or a "
+                f"custom backend implementing it")
+        feats, qemb = _pad_rows(feats, bpad), _pad_rows(qemb, bpad)
+        with self.obs.tracer.span("dispatch_retrieved", batch=b):
+            obs_on = self.obs.enabled
+            t0 = self.obs.clock.now() if obs_on else 0.0
+            res = self.backend.route_retrieved(
+                feats, qemb, scorer_params, self.router,
+                n_cand=_on(nc, torch.int32, dev))
+            tiers = to_numpy(res.tiers[:b])
+            diff = to_numpy(res.difficulty[:b])
+            metrics = to_numpy(res.metrics[:b])
+            if obs_on:
+                self._m_dispatch_s.observe(self.obs.clock.now() - t0)
+            decision = self.policy.decide(tiers, diff, metrics)
+            first_id, metric_name, recalibrated = self._record_batch(
+                decision.tiers, diff, decision, backend_tiers=tiers)
+        nv_out = to_numpy(res.n_valid[:b])
+        probs = to_numpy(res.probs[:b])
+        if decision.depths is not None:
+            # Depth-routing: the candidate set each request SHIPS is the
+            # routed depth — shrink the valid prefix and zero the probs
+            # past it so downstream consumers can't read truncated rows.
+            nv_out = np.minimum(nv_out, decision.depths).astype(np.int32)
+            probs = np.where(
+                np.arange(probs.shape[1])[None, :] < nv_out[:, None],
+                probs, 0.0).astype(probs.dtype)
+        return RetrievedDispatchResult(
+            result=BatchDispatchResult(
+                tiers=decision.tiers, difficulty=diff,
+                metrics=metrics, first_id=first_id,
+                metric=metric_name, recalibrated=recalibrated,
+                request_cost=decision.request_cost,
+                depths=decision.depths),
+            indices=to_numpy(res.indices[:b]),
+            probs=probs,
+            n_valid=nv_out)
+
+    def _record_batch(self, tiers: np.ndarray, diff: np.ndarray,
+                      decision=None, backend_tiers=None
+                      ) -> tuple[int, str, bool]:
+        """The control-plane half shared by every dispatch entry: request
+        ids, tier/cost/difficulty counters, drift-aware recalibration.
+        ``backend_tiers`` is the difficulty backend's threshold decision
+        (pre-policy) — the trace's ``dispatch`` event carries it so a
+        request's timeline shows both halves of the decision."""
+        b = len(tiers)
+        recalibrated = False
+        with self._lock:
+            metric_name = self.router.metric
+            first_id = self._next_id
+            self._next_id += b
+            counts = np.bincount(tiers, minlength=self.router.n_tiers)
+            total = self.stats.n_requests
+            self.stats.n_requests += b
+            self.stats.n_batches += 1
+            self.stats.mean_difficulty = (
+                (self.stats.mean_difficulty * total + float(diff.sum()))
+                / max(self.stats.n_requests, 1))
+            cost_before = self.stats.total_cost
+            if decision is not None and decision.request_cost is not None:
+                # The policy priced each request itself (per-stage cascade
+                # bills, per-depth prompt lengths) — the ledger takes the
+                # decision's word over the flat per-tier price.
+                self.stats.total_cost += float(decision.request_cost.sum())
+                for t, c in enumerate(counts):
+                    if c:
+                        self.stats.tier_counts[t] += int(c)
+            else:
+                for t, c in enumerate(counts):
+                    if not c:
+                        continue
+                    self.stats.tier_counts[t] += int(c)
+                    name = self.tier_names[t]
+                    if name in self.cost_model.cost_per_mtok:
+                        self.stats.total_cost += (
+                            self.cost_model.request_cost(name) * int(c))
+            # registry mirrors (no-ops under NULL_OBS)
+            self._m_requests.inc(b)
+            self._m_batches.inc()
+            self._m_cost.inc(self.stats.total_cost - cost_before)
+            self._m_mean_diff.set(self.stats.mean_difficulty)
+            for t, c in enumerate(counts):
+                if c:
+                    self._m_tiers[t].inc(int(c))
+            if self.calibrator is not None:
+                new_config = self.calibrator.observe(diff)
+                if new_config is not None:
+                    self.router = new_config
+                    self.stats.n_recalibrations += 1
+                    self._m_recal.inc()
+                    recalibrated = True
+                    # An inline drift swap re-fits the policy from the
+                    # window that produced the new thresholds (same rule
+                    # as apply_config; we already hold the lock).
+                    self._refit_policy_locked()
+        if self.obs.enabled:
+            # Batch-granularity trace events: one "dispatch" (the
+            # backend's threshold tiers) + one "policy" (the final
+            # decision) carrying first_id + per-row tiers — the export
+            # walker re-expands them into per-request timelines.
+            # ndarrays go in raw: the tracer's _jsonable hits the
+            # one-shot ndarray->tolist branch instead of walking a
+            # python list per element (measured on the 5% overhead gate)
+            tr = self.obs.tracer
+            bt = tiers if backend_tiers is None else backend_tiers
+            tr.event("dispatch", first_id=first_id,
+                     tiers=np.asarray(bt), metric=metric_name)
+            attrs = {"first_id": first_id, "kind": self.policy.kind,
+                     "tiers": np.asarray(tiers)}
+            if backend_tiers is not None and \
+                    not np.array_equal(bt, tiers):
+                attrs["tiers_in"] = np.asarray(bt)  # policy overrode rows
+            if decision is not None and decision.info:
+                attrs.update(decision.info)
+            tr.event("policy", **attrs)
+            if recalibrated:
+                tr.event("recalibrate", first_id=first_id,
+                         thresholds=list(self.router.thresholds))
+        return first_id, metric_name, recalibrated
