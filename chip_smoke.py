@@ -21,6 +21,17 @@ and nothing of the JAX package. Phases, each fatal on failure:
 4. times    — CUDA-event times of every kernel beside its plain version,
               a library call where one exists, and its bound; end-to-end
               ``route_retrieved`` times for ``fused`` and ``oracle``.
+5. tiers    — the LLM tiers behind the router at full width: yi-6b (tier
+              0) and internlm2-20b (tier 1) with random bf16 weights made
+              on the card, served through ``build(spec, runners=
+              EngineBank(...).runners())`` with the KGQA session's
+              calibrated spec: 32 requests of ~1,500-2,000-token prompts.
+              Kernel launches are counted over this phase only. Then one
+              prefill and one decode step per tier held against the plain
+              attention path, prefill/decode times with a device
+              breakdown, and the attention kernels' times at the served
+              shapes beside their plain versions, PyTorch's
+              ``scaled_dot_product_attention`` and their bound.
 
 The second-to-last line is ``nvidia-smi``'s name and power limit, the
 line before it lists the kernels as JSON, and the last line is
@@ -45,6 +56,7 @@ SEED = 0
 # bandwidth and fp32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12    # tensor cores, dense
 
 # Kernel vs plain version, same inputs, same card:
 SKEW_TOL = dict(atol=1e-5, rtol=1e-5)        # reference's skew-metric bar
@@ -63,6 +75,33 @@ SCORE_TOL_WIDE = dict(atol=5e-5, rtol=1e-5)
 # check of that column is kernel vs plain version, on the same inputs).
 E2E_TOL = dict(atol=1e-4, rtol=1e-4)
 TINY = 5.6406751573846435e-34   # the reference's near-zero-total example
+# Attention kernels vs their plain versions. fp32: the reference's bar
+# (tests/test_kernels.py:25). bf16: both sides do fp32 math and differ
+# only where a sum taken in another order rounds to a neighbouring bf16
+# value, one ulp, at most 2^-7 of the value; atol 1e-3 covers outputs
+# near 0. The reference's 2e-2 bar would be half an output at S=2048
+# (outputs averaged over ~2,000 random keys have rms ~0.04).
+ATTN_TOL = {"fp32": dict(atol=1e-5, rtol=1e-5),
+            "bf16": dict(atol=1e-3, rtol=2 ** -7)}
+# The kernels of phase server's path (the routing server).
+SERVER_KERNELS = ("skew_metrics", "triple_score_batched", "triple_score")
+# The attention shapes of the two tiers: (H, KV, Dh).
+TIER_HEADS = {"yi-6b": (32, 4, 128), "internlm2-20b": (48, 8, 128)}
+# Phase tiers: requests, prompt lengths around the paper's KG-RAG prompt
+# of 1,873 tokens (src/repro/core/cost.py:27), tokens generated each.
+TIER_REQUESTS = 32
+PROMPT_LENGTHS = (1500, 2000)
+MAX_NEW = 16
+# Whole-model check, kernels vs the plain attention path (attn_impl=
+# "full"), bf16 weights: the two paths differ only inside attention, by
+# about one bf16 rounding (unit roundoff u = 2^-8) of its output. Every
+# later bf16 product rounds again, so the difference grows like a random
+# walk over the layers, sqrt(L) u in relative size; the logits are read
+# off a bf16 GEMM, adding their own rounding. Bound: max abs difference
+# <= 16 sqrt(L) u rms(logits), mean abs difference <= 4 sqrt(L) u
+# rms(logits). A wrong stride, head mapping or mask moves logits by
+# O(rms).
+BF16_U = 2.0 ** -8
 
 # The paper-scale scorer width (src/repro/kernels/triple_score/kernel.py:
 # 17-18, benchmarks/kernel_bench.py:75-76) at B=256, N=512. The repo names
@@ -311,6 +350,58 @@ def phase_kernels(dev, errs: dict) -> None:
     errs["triple_score_batched"] = worst_b
     errs["triple_score"] = worst_s
     torch.cuda.synchronize()
+    check_attention_kernels(dev, errs)
+
+
+def check_attention_kernels(dev, errs: dict) -> None:
+    """Flash and decode kernels vs their plain versions at the tiers'
+    attention shapes: q/k/v as head slices of one fused projection
+    (strided views), lengths that are not multiples of a tile, the decode
+    cache as the engine's flat [B, S, KV*Dh] layer viewed per head."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    worst = {"flash_attention": {}, "decode_attention": {}}
+    for name, (h, kv, dh) in TIER_HEADS.items():
+        for dtype, tname in ((torch.bfloat16, "bf16"),
+                             (torch.float32, "fp32")):
+            for s in (16, 100, 512, 2048):
+                b = 1 if s == 2048 else 2   # the plain version is [B,H,S,S]
+                qkv = torch.randn(b, s, h + 2 * kv, dh, generator=gen,
+                                  device=dev).to(dtype)
+                q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], \
+                    qkv[:, :, h + kv:]
+                e = check_close(f"flash_attention {name} S={s} {tname}",
+                                fk.flash_attention(q, k, v),
+                                fk.flash_attention_plain(q, k, v),
+                                **ATTN_TOL[tname])
+                worst["flash_attention"][tname] = max(
+                    e, worst["flash_attention"].get(tname, 0.0))
+            s = 2048
+            ck = torch.randn(2, s, kv * dh, generator=gen,
+                             device=dev).to(dtype).view(2, s, kv, dh)
+            cv = torch.randn(2, s, kv * dh, generator=gen,
+                             device=dev).to(dtype).view(2, s, kv, dh)
+            q = torch.randn(2, h, dh, generator=gen, device=dev).to(dtype)
+            for kv_len in (1, 17, 1873, s):
+                e = check_close(
+                    f"decode_attention {name} kv_len={kv_len} {tname}",
+                    dk.decode_attention(q, ck, cv, kv_len),
+                    dk.decode_attention_plain(q, ck, cv, kv_len),
+                    **ATTN_TOL[tname])
+                worst["decode_attention"][tname] = max(
+                    e, worst["decode_attention"].get(tname, 0.0))
+            del qkv, q, k, v, ck, cv
+    for kernel, w in worst.items():
+        errs[kernel] = max(w.values())
+        log(f"phase kernels: {kernel} == plain at (H, KV, Dh) in "
+            f"{list(TIER_HEADS.values())}, "
+            + ("S in (16, 100, 512, 2048)" if kernel == "flash_attention"
+               else "S=2048, kv_len in (1, 17, 1873, 2048)")
+            + f": max abs err bf16 {w['bf16']:.3g} ({ATTN_TOL['bf16']}), "
+              f"fp32 {w['fp32']:.3g} ({ATTN_TOL['fp32']})")
+    torch.cuda.synchronize()
 
 
 class Tally:
@@ -478,7 +569,7 @@ def phase_server(dev, errs: dict) -> dict:
     cfgw = paper.dispatcher.router
     rw = tally.step("paper fused B=256", lambda: paper.route_retrieved(
         p_feats, p_q, p_params))
-    launches = dict(tally.counts)
+    launches = {k: tally.counts[k] for k in SERVER_KERNELS}
     # ---- end of the main path -------------------------------------------
     log(f"phase server: launches per path {json.dumps(tally.per_path)}")
     log(f"phase server: main path launches {json.dumps(launches)}")
@@ -572,7 +663,7 @@ def phase_server(dev, errs: dict) -> dict:
                                 torch.as_tensor(r.n_valid, device=dev))
                  for r in (rw, r64)}
     return dict(launches=launches, per_path=tally.per_path,
-                skew_rows=skew_rows,
+                skew_rows=skew_rows, payload=payload,
                 kgqa=dict(feats=feats, qemb=qemb, n_cand=n_cand,
                           params=params, cfg=cfg64, data=data, scfg=cfg),
                 paper=dict(feats=p_feats, q=p_q, params=p_params, cfg=cfgw,
@@ -742,7 +833,265 @@ def phase_times(dev, server: dict) -> dict:
     return dict(kernels=rows, e2e=e2e)
 
 
-def kernel_lines(server: dict, times: dict, errs: dict) -> list[dict]:
+def flash_bound_ms(b: int, s: int, h: int, kv: int, dh: int,
+                   elem: int) -> tuple[float, str]:
+    """Operations: causal, so query i meets i + 1 keys; 2 Dh FLOPs each
+    for q.k and for p.v. Bytes: q, k, v read once, o written once."""
+    flops = b * h * 2 * dh * s * (s + 1)
+    nbytes = b * s * (2 * h + 2 * kv) * dh * elem
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOP_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def decode_bound_ms(b: int, kv_len: int, h: int, kv: int, dh: int,
+                    elem: int) -> tuple[float, str]:
+    """Operations: 4 Dh FLOPs per query head and valid cache position.
+    Bytes: q, the kv_len valid positions of k and v, o."""
+    flops = b * h * 4 * dh * kv_len
+    nbytes = (b * 2 * h * dh + b * 2 * kv_len * kv * dh) * elem
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOP_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def compare_logits(what: str, got, want, n_layers: int) -> dict:
+    """Kernel-path vs plain-path logits under the bf16 bound stated at
+    BF16_U (max <= 16 sqrt(L) u rms, mean <= 4 sqrt(L) u rms); returns
+    the numbers, raises outside the bound."""
+    import torch
+    got, want = got.double(), want.double()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    rms = float(want.pow(2).mean().sqrt())
+    scale = (n_layers ** 0.5) * BF16_U * rms
+    diff = (got - want).abs()
+    out = dict(max_abs=float(diff.max()), mean_abs=float(diff.mean()),
+               bound_max=16 * scale, bound_mean=4 * scale, rms=rms,
+               argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                                  .double().mean()))
+    if out["max_abs"] > out["bound_max"] or \
+            out["mean_abs"] > out["bound_mean"]:
+        raise AssertionError(f"{what}: kernels vs plain attention outside "
+                             f"the bf16 bound: {out}")
+    return out
+
+
+def phase_tiers(dev, errs: dict, server: dict) -> dict:
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.api import RouteSpec, build
+    from repro_torch.configs import internlm2_20b, yi_6b
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer as tfm
+    from repro_torch.retrieval import scorer as sc
+    from repro_torch.serving.engine import EngineBank, make_engine
+
+    # ---- the tiers, initialised on the card from seeded generators -------
+    t0 = time.perf_counter()
+    configs = {0: yi_6b.CONFIG, 1: internlm2_20b.CONFIG}
+    engines = {t: make_engine(c, seed=SEED + t) for t, c in configs.items()}
+    torch.cuda.synchronize()
+    gib = {c.name: c.n_params * 2 / 2 ** 30 for c in configs.values()}
+    log(f"phase tiers: {', '.join(f'{c.name} {c.n_layers} layers' for c in configs.values())} "
+        f"(weights {json.dumps(gib)} GiB bf16) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s; device memory allocated "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB")
+
+    kq = server["kgqa"]
+    data, params, scfg = kq["data"], kq["params"], kq["scfg"]
+    rng = np.random.default_rng(SEED)
+    vocab = min(c.vocab for c in configs.values())
+    lengths = rng.integers(PROMPT_LENGTHS[0], PROMPT_LENGTHS[1] + 1,
+                           TIER_REQUESTS)
+    prompts = [rng.integers(1, vocab, n).astype(np.int32) for n in lengths]
+    bank = EngineBank(engines, max_new=MAX_NEW)
+    session = build(RouteSpec.from_json(server["payload"]),
+                    runners=bank.runners())
+
+    # ---- the main path: launches counted from here ----------------------
+    cuda_build.reset_launches()
+    t1 = time.perf_counter()
+    for start in range(0, TIER_REQUESTS, 16):   # serve.py's request batches
+        rows, nvs = [], []
+        for q in data.queries[100 + start:100 + start + 16]:
+            _, probs = sc.retrieve(params, data.kg, data.entity_emb,
+                                   data.relation_emb, q, scfg, seed=SEED)
+            rows.append(np.pad(probs[:100], (0, max(0, 100 - len(probs)))))
+            nvs.append(min(len(probs), 100))
+        session.submit(np.stack(rows), prompts[start:start + 16],
+                       n_valid=np.asarray(nvs, np.int32))
+    session.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(cuda_build.LAUNCHES)
+    # ---- end of the main path -------------------------------------------
+    batches = [dict(tier=b.tier, size=b.size,
+                    tokens=list(b.result.tokens.shape))
+               for b in session.executed]
+    log(f"phase tiers: served {TIER_REQUESTS} requests (prompts "
+        f"{int(lengths.min())}..{int(lengths.max())} tokens) in {wall:.2f} s "
+        f"over micro-batches {json.dumps(batches)}; launches "
+        f"{json.dumps(launches)}")
+    if sum(b["size"] for b in batches) != TIER_REQUESTS:
+        raise AssertionError(f"executed {batches}, {TIER_REQUESTS} requests "
+                             f"submitted")
+    if {b["tier"] for b in batches} != set(configs):
+        raise AssertionError(f"both tiers must get traffic: {batches}")
+    for b in session.executed:
+        toks = b.result.tokens
+        if toks.shape != (b.size, MAX_NEW) or toks.min() < 0 or \
+                toks.max() >= configs[b.tier].vocab:
+            raise AssertionError(f"tier {b.tier} micro-batch returned "
+                                 f"tokens {toks.shape} in "
+                                 f"[{toks.min()}, {toks.max()}]")
+    # the decode lengths the served micro-batches hit: each decodes at
+    # kv_len = s + i + 1 for its longest prompt s and step i < MAX_NEW
+    served_kv = {}
+    for b in session.executed:
+        s = b.result.prompt_tokens // b.size
+        served_kv.setdefault(configs[b.tier].name, set()).update(
+            (s + 1, s + MAX_NEW))
+    want = {"flash_attention": sum(configs[b["tier"]].n_layers
+                                   for b in batches),
+            "decode_attention": sum(configs[b["tier"]].n_layers * MAX_NEW
+                                    for b in batches)}
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"{k}: {launches[k]} launches on the main "
+                                 f"path, {n} expected (one per layer per "
+                                 f"prefill / decode step)")
+
+    # ---- kernels vs the plain attention path, whole model ---------------
+    parity, times = {}, {}
+    s_prompt = 1873                       # the paper's mean KG-RAG prompt
+    for tier, eng in engines.items():
+        cfg = eng.cfg
+        full = dataclasses.replace(cfg, attn_impl="full")
+        toks = np.zeros((2, 2048), np.int32)
+        toks[:, :s_prompt] = rng.integers(1, vocab, (2, s_prompt))
+        toks = torch.as_tensor(toks, device=dev)
+        lk, ck = tfm.prefill(eng.params, toks, cfg)
+        lf, cf = tfm.prefill(eng.params, toks, full)
+        res = {"prefill": compare_logits(f"{cfg.name} prefill", lk, lf,
+                                         cfg.n_layers)}
+        nxt = torch.argmax(lf, -1)[:, None]
+        lk, _ = tfm.decode_step(eng.params, ck, nxt, s_prompt, cfg)
+        lf, _ = tfm.decode_step(eng.params, cf, nxt, s_prompt, full)
+        res["decode"] = compare_logits(f"{cfg.name} decode", lk, lf,
+                                       cfg.n_layers)
+        parity[cfg.name] = res
+        log(f"phase tiers: {cfg.name} kernels vs plain attention, B=2 "
+            f"S={s_prompt} (bucket 2048): {json.dumps(res)}")
+        del ck, cf
+
+        # ---- prefill per micro-batch and decode per token --------------
+        b = 8
+        mb = torch.as_tensor(np.stack(
+            [np.pad(p[:2000], (0, 2048 - len(p[:2000]))) for p in prompts[:b]]
+        ), device=dev)
+        holder = {}
+
+        def run_prefill():
+            holder["logits"], holder["cache"] = tfm.prefill(eng.params, mb,
+                                                            cfg)
+        prefill_ms = sync_time(run_prefill, 2)
+        step = iter(range(s_prompt, 2048))
+        first = torch.argmax(holder["logits"], -1)[:, None]
+
+        def run_decode():
+            tfm.decode_step(eng.params, holder["cache"], first, next(step),
+                            cfg)
+        decode_ms = sync_time(run_decode, 8)
+        bd_prefill = device_breakdown(run_prefill, 1)
+        bd_decode = device_breakdown(run_decode, 4)
+        times[cfg.name] = dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
+                               batch=b, seq=2048,
+                               prefill_device=bd_prefill,
+                               decode_device=bd_decode)
+        log(f"phase tiers: {cfg.name} B={b} S=2048: prefill {prefill_ms:.2f}"
+            f" ms per micro-batch, decode {decode_ms:.3f} ms per token step; "
+            f"prefill device busy {bd_prefill['busy_ms']:.2f} of "
+            f"{bd_prefill['wall_ms']:.2f} ms (idle share "
+            f"{bd_prefill['idle_share']}), top {json.dumps(bd_prefill['top'])}"
+            f"; decode step busy {bd_decode['busy_ms']:.3f} of "
+            f"{bd_decode['wall_ms']:.3f} ms (idle share "
+            f"{bd_decode['idle_share']}), top {json.dumps(bd_decode['top'])}")
+        holder.clear()
+    del engines, bank, session, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the attention kernels at the served shapes: held against their
+    # plain versions, then timed on the same inputs ----------------------
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows, served_errs = {}, {}
+    for name, (h, kv, dh) in TIER_HEADS.items():
+        b, s, kv_len = 8, 2048, 1873 + MAX_NEW // 2
+        q = torch.randn(b, s, h, dh, generator=gen, device=dev).bfloat16()
+        k = torch.randn(b, s, kv, dh, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, s, kv, dh, generator=gen, device=dev).bfloat16()
+        e = check_close(f"flash_attention {name} served B={b} S={s} bf16",
+                        fk.flash_attention(q, k, v),
+                        fk.flash_attention_plain(q, k, v),
+                        **ATTN_TOL["bf16"])
+        served_errs[f"flash_attention {name}"] = e
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        bound, by = flash_bound_ms(b, s, h, kv, dh, 2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        rows[f"flash_attention {name}"] = dict(
+            name="flash_attention", shape=[b, s, h, kv, dh],
+            **kernel_ms(lambda: fk.flash_attention(q, k, v), 3,
+                        "flash_attention_kernel"),
+            plain_ms=event_time(lambda: fk.flash_attention_plain(q, k, v),
+                                1, reps=3, warmup=1),
+            library_ms=event_time(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 5),
+            bound_ms=bound, bound_by=by)
+        del q, qt
+        qd = torch.randn(b, h, dh, generator=gen, device=dev).bfloat16()
+        ck = torch.randn(b, s, kv * dh, generator=gen,
+                         device=dev).bfloat16().view(b, s, kv, dh)
+        cv = torch.randn(b, s, kv * dh, generator=gen,
+                         device=dev).bfloat16().view(b, s, kv, dh)
+        for n in sorted({kv_len, *served_kv[name]}):
+            e = check_close(
+                f"decode_attention {name} served B={b} kv_len={n} bf16",
+                dk.decode_attention(qd, ck, cv, n),
+                dk.decode_attention_plain(qd, ck, cv, n),
+                **ATTN_TOL["bf16"])
+            served_errs[f"decode_attention {name} kv_len={n}"] = e
+            errs["decode_attention"] = max(errs["decode_attention"], e)
+        mask = (torch.arange(s, device=dev) < kv_len)[None, :]
+        bound, by = decode_bound_ms(b, kv_len, h, kv, dh, 2)
+        rows[f"decode_attention {name}"] = dict(
+            name="decode_attention", shape=[b, s, h, kv, dh, kv_len],
+            **kernel_ms(lambda: dk.decode_attention(qd, ck, cv, kv_len), 50,
+                        "decode_attention_kernel"),
+            plain_ms=event_time(
+                lambda: dk.decode_attention_plain(qd, ck, cv, kv_len), 20),
+            library_ms=event_time(lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True), 20),
+            bound_ms=bound, bound_by=by)
+        del k, v, kt, vt, qd, ck, cv
+    log(f"phase tiers: kernels == plain at the served shapes (B=8, "
+        f"S=2048, bf16 within {ATTN_TOL['bf16']}; decode at kv_len 1881 "
+        f"and the served {json.dumps({k: sorted(v) for k, v in served_kv.items()})}"
+        f"): max abs err {json.dumps(served_errs)}")
+    for name, row in rows.items():
+        log(f"phase tiers times: {name}: {json.dumps(row)}")
+    return dict(launches=launches, wall_s=wall, batches=batches,
+                parity=parity, times=times, kernels=rows,
+                served_errs=served_errs)
+
+
+def kernel_lines(server: dict, times: dict, errs: dict,
+                 tiers: dict) -> list[dict]:
     """One entry per kernel for the JSON result line."""
     replaces = {
         "skew_metrics": ("src/repro_torch/kernels/csrc/skew_metrics.cu",
@@ -768,6 +1117,23 @@ def kernel_lines(server: dict, times: dict, errs: dict) -> list[dict]:
             ms_from=r["ms_from"], shape=r["shape"],
             launches_by_path={p: c[name] for p, c in
                               server["per_path"].items()}))
+    # the tiers' kernels: launches from phase tiers' main path, times at
+    # the large tier's served shape (B=8, S=2048)
+    for name, source, ref in (
+            ("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:78"),
+            ("decode_attention",
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention/kernel.py:68")):
+        r = tiers["kernels"][f"{name} internlm2-20b"]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=ref,
+            launches=tiers["launches"][name], max_abs_err=errs[name],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            event_ms=r["event_ms"], ms_from=r["ms_from"],
+            shape=r["shape"]))
     return kernels
 
 
@@ -799,7 +1165,8 @@ def main() -> int:
         return 0
     server = phase_server(dev, errs)
     times = phase_times(dev, server)
-    kernels = kernel_lines(server, times, errs)
+    tiers = phase_tiers(dev, errs, server)
+    kernels = kernel_lines(server, times, errs, tiers)
     log(f"run took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["smi"], flush=True)

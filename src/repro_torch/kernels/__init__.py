@@ -1,4 +1,6 @@
-"""Hand-written Hopper (sm_90a) CUDA kernels for the routing hot path.
+"""Hand-written Hopper (sm_90a) CUDA kernels: the routing hot path
+(``skew_metrics``, ``triple_score``) and the LLM tiers' attention
+(``flash_attention`` for prefill, ``decode_attention`` for decode).
 
 Each kernel package ships ``kernel.py`` (the ctypes launcher with its
 shape/dtype/device checks, launch counter, and the plain PyTorch version

@@ -39,12 +39,17 @@ SOURCES = {
                      [_P, _P, _P, _I, _I, _F, _P]),
     "triple_score": ("triple_score.cu", "triple_score_launch",
                      [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "flash_attention": ("flash_attention.cu", "flash_attention_launch",
+                        [_P] * 4 + [_I] * 6 + [_LL] * 9 + [_F, _P]),
+    "decode_attention": ("decode_attention.cu", "decode_attention_launch",
+                         [_P] * 4 + [_I] * 7 + [_LL] * 8 + [_F, _P]),
 }
 
 #: Launches per kernel wrapper: each wrapper adds one where it launches
 #: its kernel and nowhere else (CPU tensors take the plain version and
 #: do not count).
-LAUNCHES = {"skew_metrics": 0, "triple_score_batched": 0, "triple_score": 0}
+LAUNCHES = {"skew_metrics": 0, "triple_score_batched": 0, "triple_score": 0,
+            "flash_attention": 0, "decode_attention": 0}
 
 #: nvcc/ptxas output of the last build, per library (registers, spills).
 BUILD_LOG: dict[str, str] = {}
@@ -73,8 +78,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / SOURCES[name][0]
-    digest = hashlib.sha256(src.read_bytes()
+    """Named by a hash of the source, the shared headers and the flags."""
+    parts = [(CSRC / SOURCES[name][0]).read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
@@ -119,8 +126,13 @@ def build_all() -> float:
 
 
 def check_tensor(t: "torch.Tensor", what: str, shape: tuple,
-                 dtype: "torch.dtype",
-                 device: "torch.device") -> None:
+                 dtype: "torch.dtype", device: "torch.device",
+                 strided: bool = False) -> None:
+    """Raise unless ``t`` has this device, dtype and shape and is
+    contiguous — or, with ``strided``, is a view whose last dimension is
+    contiguous and whose rows start on 16-byte boundaries (the data
+    pointer and the stride of every other dimension longer than 1 a
+    multiple of 16 bytes), so the kernel's 16-byte loads stay aligned."""
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -128,8 +140,18 @@ def check_tensor(t: "torch.Tensor", what: str, shape: tuple,
     if tuple(t.shape) != shape:
         raise ValueError(f"{what} must have shape {shape}, "
                          f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
+    if not strided:
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+        return
+    per16 = 16 // t.element_size()
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+            st % per16 for st, n in zip(t.stride()[:-1], t.shape[:-1])
+            if n > 1):
+        raise ValueError(f"{what}: the last dimension must be contiguous "
+                         f"and rows 16-byte aligned (strides "
+                         f"{tuple(t.stride())}, data_ptr % 16 = "
+                         f"{t.data_ptr() % 16})")
 
 
 def launch(name: str, *args) -> None:
