@@ -21,7 +21,18 @@ and nothing of the JAX package. Phases, each fatal on failure:
 4. times    — CUDA-event times of every kernel beside its plain version,
               a library call where one exists, and its bound; end-to-end
               ``route_retrieved`` times for ``fused`` and ``oracle``.
-5. tiers    — the LLM tiers behind the router at full width: yi-6b (tier
+5. recsys   — the recsys rankers behind SkewRoute at full width: deepfm
+              (tier 0) and dcn-v2 (tier 1) with random fp32 weights made
+              on the card. The port's recsys example routes B=512 requests
+              against C=1,000,000 candidates (user_embedding through the
+              segment kernel -> scores -> top-100 -> calibrate_threshold ->
+              build -> route) and serves each with its tier's ranker;
+              launches counted exactly over it; held against the same path
+              with the plain segment sums; the kernel at the served shapes
+              and the reference bench's production shape beside its plain
+              version, torch.segment_reduce / F.embedding_bag and its
+              bound; routing-batch and ranker times (serve_p99, serve_bulk).
+6. tiers    — the LLM tiers behind the router at full width: yi-6b (tier
               0) and internlm2-20b (tier 1) with random bf16 weights made
               on the card, served through ``build(spec, runners=
               EngineBank(...).runners())`` with the KGQA session's
@@ -102,6 +113,29 @@ MAX_NEW = 16
 # rms(logits). A wrong stride, head mapping or mask moves logits by
 # O(rms).
 BF16_U = 2.0 ** -8
+
+# segment_sum_sorted / embedding_bag vs their plain versions. fp32: the
+# reference's bar (tests/test_kernels.py:87). bf16: both sum in fp32 and
+# round once to bf16, so they differ by at most one bf16 ulp (2^-7 of the
+# value) where the fp32 sums straddle a rounding boundary.
+SEG_TOL = {"fp32": dict(atol=1e-5, rtol=1e-5),
+           "bf16": dict(atol=1e-3, rtol=2 ** -7)}
+FP32_U = 2.0 ** -24            # fp32 unit roundoff
+# Phase recsys: the reference example's settings (examples/
+# recsys_routing.py: entropy, 30% large-ranker budget, top-K) at the serve
+# shapes of configs/base.py:65-69 (serve_p99 B=512, serve_bulk B=262,144,
+# retrieval_cand C=1,000,000), K=100 as the session's [B, K] contract.
+# The kernel's production shape is the reference bench's (benchmarks/
+# kernel_bench.py:108): 65,536 bags of 16 rows, D=128, here gathered from a
+# 1,000,000-row table.
+RECSYS = dict(b=512, bulk=262_144, c=1_000_000, k=100, budget=0.3,
+              production=(65_536, 16, 128, 1_000_000))
+# The escalated share against the budget: the threshold is the
+# interpolated 0.7-quantile of the batch's own difficulties, so the share
+# is 154/512 up to rows tied with it or within E2E_TOL of it (the route
+# uses the fused kernel's metrics, the calibration the oracle's): 1% is
+# five rows of slack.
+CAL_TOL = 0.01
 
 # The paper-scale scorer width (src/repro/kernels/triple_score/kernel.py:
 # 17-18, benchmarks/kernel_bench.py:75-76) at B=256, N=512. The repo names
@@ -351,6 +385,7 @@ def phase_kernels(dev, errs: dict) -> None:
     errs["triple_score"] = worst_s
     torch.cuda.synchronize()
     check_attention_kernels(dev, errs)
+    check_segment_kernels(dev, errs)
 
 
 def check_attention_kernels(dev, errs: dict) -> None:
@@ -1090,8 +1125,366 @@ def phase_tiers(dev, errs: dict, server: dict) -> dict:
                 served_errs=served_errs)
 
 
+# -- phase recsys ---------------------------------------------------------------
+
+def _seg_rows(gen, s: int, r: int, d: int, dtype, dev, pads: bool,
+              offset: int = 0):
+    """[S*r, D] rows (``offset`` elements past an aligned address) and
+    sorted segment ids; with ``pads`` ~30% of rows and all of segment 0
+    are -1."""
+    import torch
+    flat = torch.randn(s * r * d + offset, generator=gen, device=dev)
+    rows = flat.to(dtype)[offset:].view(s * r, d)
+    seg = torch.arange(s, device=dev, dtype=torch.int32).repeat_interleave(r)
+    if pads:
+        drop = torch.rand(s * r, generator=gen, device=dev) < 0.3
+        seg = torch.where(drop, -1, seg).to(torch.int32)
+        seg[:r] = -1
+    return rows, seg
+
+
+def check_segment_kernels(dev, errs: dict) -> None:
+    """segment_sum_sorted and embedding_bag vs their plain versions: the
+    reference test's shapes (tests/test_kernels.py:78), D in (1, 10, 21,
+    128) at r in (1, 39), pad rows, rows and tables that start one element
+    past an aligned address (narrow loads), fp32 and bf16; the bag with -1
+    pads and an all-pad bag, sum and mean."""
+    import torch
+    from repro_torch.kernels.segment_reduce import kernel as sr
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    shapes = [(8, 4, 16), (16, 8, 32), (32, 2, 64)]
+    shapes += [(64, r, d) for r in (1, 39) for d in (1, 10, 21, 128)]
+    for dtype, tname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        tol = SEG_TOL[tname]
+        for s, r, d in shapes:
+            for pads, offset in ((False, 0), (True, 0), (True, 1)):
+                rows, seg = _seg_rows(gen, s, r, d, dtype, dev, pads, offset)
+                e = check_close(
+                    f"segment_sum_sorted S={s} r={r} D={d} pads={pads} "
+                    f"offset={offset} {tname}",
+                    sr.segment_sum_sorted(rows, seg, s, r),
+                    sr.segment_sum_sorted_plain(rows, seg, s, r), **tol)
+                worst[tname] = max(worst[tname], e)
+        for b, nnz, d in ((8, 5, 1), (64, 39, 10), (64, 26, 16),
+                          (64, 16, 128), (4, 3, 21)):
+            for offset in (0, 1):
+                flat = torch.randn(5000 * d + offset, generator=gen,
+                                   device=dev).to(dtype)
+                table = flat[offset:].view(5000, d)
+                ids = torch.randint(-1, 5000, (b, nnz), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                ids[1] = -1
+                for mean in (False, True):
+                    got = sr.embedding_bag(table, ids, mean)
+                    if got[1].any():
+                        raise AssertionError("an all-pad bag is not 0")
+                    e = check_close(
+                        f"embedding_bag B={b} nnz={nnz} D={d} mean={mean} "
+                        f"offset={offset} {tname}", got,
+                        sr.embedding_bag_plain(table, ids, mean), **tol)
+                    worst[tname] = max(worst[tname], e)
+    errs["segment_sum_sorted"] = worst["fp32"]
+    log(f"phase kernels: segment_sum_sorted / embedding_bag == plain at "
+        f"(S, r, D) in {shapes}, pads, misaligned rows, bags with -1 pads: "
+        f"max abs err fp32 {worst['fp32']:.3g} ({SEG_TOL['fp32']}), bf16 "
+        f"{worst['bf16']:.3g} ({SEG_TOL['bf16']})")
+    torch.cuda.synchronize()
+
+
+def seg_bound_ms(s: int, r: int, d: int, elem: int,
+                 rows_read: int) -> tuple[float, str]:
+    """Bytes: the ``rows_read`` rows (handed over, or gathered from the
+    table) read once, the [S*r] int32 ids read, [S, D] written.
+    Operations: one add per row element read, at the fp32 rate."""
+    nbytes = rows_read * d * elem + s * r * 4 + s * d * elem
+    ops = rows_read * d
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOP_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def deepfm_logit_bound(params: dict, cfg, sparse, logits):
+    """Per-row bound on |kernel path - plain path| of deepfm logits. The
+    two differ only in the order of the three F-term fp32 sums (fm1, sum
+    v_d, sum v_d^2); the deep tower is the same ops on the same inputs. A
+    sum of F terms lies within g(F-1) sum|x| of the exact sum (g(n) =
+    n u / (1 - n u), u = 2^-24), so two orders differ by at most
+    e(x) = 2 g(F-1) sum|x|. fm2 = 1/2 sum_d (s_d^2 - q_d) then moves by at
+    most 1/2 sum_d (2 |s_d| e_d + e_d^2 + e'_d), plus its own d + 2
+    roundings on either side, 2 g(d+2) 1/2 sum_d (s_d^2 + q_d); the two
+    final adds round fm1 + fm2 + deep: 4 u (|fm1| + |fm2| + |logit|)."""
+    from repro_torch.models import recsys as rec
+
+    def g(n):
+        return n * FP32_U / (1 - n * FP32_U)
+
+    gids = rec.to_global_ids(cfg, sparse)
+    f, d = gids.shape[1], cfg.embed_dim
+    v = params["tables"][gids].double()                       # [B, F, d]
+    first = params["fm"]["w1"][gids][..., 0].double()         # [B, F]
+    s, q = v.sum(1), (v * v).sum(1)
+    e_first = 2 * g(f - 1) * first.abs().sum(1)
+    e_s = 2 * g(f - 1) * v.abs().sum(1)
+    e_q = 2 * g(f - 1) * q
+    fm1, fm2 = first.sum(1), 0.5 * (s * s - q).sum(1)
+    e_fm2 = 0.5 * (2 * (s.abs() + e_s) * e_s + e_q).sum(1) \
+        + g(d + 2) * (s * s + q).sum(1)
+    logit = logits.to(v.device).double().abs()
+    return e_first + e_fm2 + 4 * FP32_U * (fm1.abs() + fm2.abs() + logit)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_recsys(dev, errs: dict) -> dict:
+    """The recsys routing path at full deepfm / dcn-v2 width: the example
+    (``repro_torch.examples.recsys_routing.main``) routes B=512 requests
+    against C=1,000,000 candidates and serves each with its tier's ranker;
+    launches counted over it; held against the same path with the plain
+    segment sums; the kernel at the served shapes; ranker times."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import dcn_v2, deepfm
+    from repro_torch.examples import recsys_routing as example
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.segment_reduce import kernel as sr
+    from repro_torch.models import recsys as rec
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    small_cfg, large_cfg = deepfm.CONFIG, dcn_v2.CONFIG
+    small = rec.init_params(torch.Generator(device=dev).manual_seed(SEED + 10),
+                            small_cfg, dev)
+    large = rec.init_params(torch.Generator(device=dev).manual_seed(SEED + 11),
+                            large_cfg, dev)
+    torch.cuda.synchronize()
+    gib = {c.name: sum(t.numel() * t.element_size() for t in _leaves(p))
+           / 2 ** 30 for c, p in ((small_cfg, small), (large_cfg, large))}
+    log(f"phase recsys: deepfm ({small_cfg.padded_vocab:,} x "
+        f"{small_cfg.embed_dim} table) and dcn-v2 ({large_cfg.padded_vocab:,}"
+        f" x {large_cfg.embed_dim}) at full width, fp32 weights "
+        f"{json.dumps(gib)} GiB, made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    b, c, k = RECSYS["b"], RECSYS["c"], RECSYS["k"]
+    run = dict(device=dev, small_cfg=small_cfg, large_cfg=large_cfg,
+               n_req=b, n_cand=c, top_k=k, params=(small, large), seed=SEED,
+               verbose=False)
+
+    # ---- the main path: launches counted from here ----------------------
+    cuda_build.reset_launches()
+    t1 = time.perf_counter()
+    out = example.main(**run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(cuda_build.LAUNCHES)
+    # ---- end of the main path -------------------------------------------
+    want = {name: 0 for name in launches}
+    want.update(embedding_bag=1, segment_sum_sorted=1, skew_metrics=1)
+    log(f"phase recsys: main path (retrieval_scores [{b}, {c:,}] -> top-{k}"
+        f" -> calibrate_threshold -> build -> route -> deepfm / dcn-v2 "
+        f"forward) in {wall:.2f} s; launches {json.dumps(launches)}")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}: one "
+                             f"embedding_bag per user_embedding, one "
+                             f"segment_sum_sorted per deepfm forward, none "
+                             f"in dcn-v2's, one skew_metrics per batch")
+    tiers, diff, theta = out["tiers"], out["difficulty"], out["theta"]
+    share = float((tiers > 0).mean())
+    if abs(share - RECSYS["budget"]) > CAL_TOL:
+        raise AssertionError(f"escalated share {share} vs budget "
+                             f"{RECSYS['budget']} (tolerance {CAL_TOL})")
+    logits = out["logits"]
+    if tuple(out["scores_desc"].shape) != (b, k) or \
+            not np.isfinite(logits).all():
+        raise AssertionError("scores or logits malformed")
+    log(f"phase recsys: entropy threshold {theta:.6f}; escalated "
+        f"{int((tiers > 0).sum())} of {b} ({share:.4f}, budget "
+        f"{RECSYS['budget']} +- {CAL_TOL}); mean entropy served-small "
+        f"{diff[tiers == 0].mean():.5f} vs escalated "
+        f"{diff[tiers > 0].mean():.5f}")
+
+    # ---- the same path with the plain segment sums -----------------------
+    before = dict(cuda_build.LAUNCHES)
+    plain = example.main(**run, use_kernels=False)
+    if any(cuda_build.LAUNCHES[name] != before[name]
+           for name in ("embedding_bag", "segment_sum_sorted")):
+        raise AssertionError("use_kernels=False launched a segment kernel")
+    check_close("recsys scores_desc vs plain", out["scores_desc"],
+                plain["scores_desc"], **E2E_TOL)
+    if abs(plain["theta"] - theta) > E2E_TOL["atol"] + \
+            E2E_TOL["rtol"] * abs(theta):
+        raise AssertionError(f"theta {theta} vs plain {plain['theta']}")
+    check_close("recsys difficulty vs plain", diff, plain["difficulty"],
+                **E2E_TOL)
+    # a row can change tier only if its difficulty and the threshold moved
+    # it across: tiers must agree outside that measured band
+    band = float(np.abs(diff - plain["difficulty"]).max()) + \
+        abs(plain["theta"] - theta)
+    near = np.abs(diff - theta) <= band
+    wrong = (tiers != plain["tiers"]) & ~near
+    if wrong.any():
+        raise AssertionError(f"recsys tiers differ from the plain path in "
+                             f"rows {np.flatnonzero(wrong)[:10].tolist()}")
+    user_fields, cand_ids, dense, sparse = out["requests"]
+    r0, r1 = out["rows"][0], out["rows"][1]
+    user0 = torch.as_tensor(user_fields[r0], device=dev)
+    want0 = rec.forward(small, small_cfg, {"sparse": user0},
+                        use_kernels=False)
+    bound0 = deepfm_logit_bound(small, small_cfg, user0,
+                                want0).cpu().numpy()
+    want0 = want0.cpu().numpy()
+    diff0 = np.abs(logits[r0].astype(np.float64) - want0)
+    if (diff0 > bound0).any():
+        raise AssertionError(f"deepfm logits outside the derived bound: "
+                             f"max diff {diff0.max()}, bound at that row "
+                             f"{bound0[diff0.argmax()]}")
+    want1 = rec.forward(large, large_cfg, {"dense": dense[r1],
+                                           "sparse": sparse[r1]},
+                        use_kernels=False).cpu().numpy()
+    if not np.array_equal(logits[r1], want1):
+        raise AssertionError("dcn-v2 logits differ between two runs of the "
+                             "same ops on the same inputs")
+    parity = dict(theta=theta, theta_plain=plain["theta"], band=band,
+                  rows_near_theta=int(near.sum()),
+                  tiers_differ=int((tiers != plain["tiers"]).sum()),
+                  deepfm_max_abs=float(diff0.max()),
+                  deepfm_bound_min=float(bound0.min()),
+                  deepfm_max_share_of_bound=float((diff0 / bound0).max()),
+                  dcn_equal=True)
+    log(f"phase recsys: kernel path vs plain segment sums on the card "
+        f"(scores and difficulty {E2E_TOL}; tiers equal outside the "
+        f"measured band around theta; deepfm logits inside the derived bound; dcn-v2 "
+        f"logits equal): {json.dumps(parity)}")
+    del plain
+    gc.collect()
+
+    # ---- the kernel at the served shapes: held against its plain version,
+    # then timed beside it, the library call and its bound ----------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    session = out["session"]
+    user = torch.as_tensor(user_fields, device=dev)
+    cand = torch.as_tensor(cand_ids, device=dev)
+    served_errs, rows = {}, {}
+    shapes = {"serve_p99": (b, small_cfg.n_sparse, small),
+              "serve_bulk": (RECSYS["bulk"], small_cfg.n_sparse, small),
+              "production": RECSYS["production"][:2] + (None,)}
+    for name, (s, r, params) in shapes.items():
+        if params is None:
+            d, n_rows = RECSYS["production"][2:]
+            table = torch.randn(n_rows, d, generator=gen, device=dev)
+            ids = torch.randint(0, n_rows, (s, r), generator=gen,
+                                device=dev, dtype=torch.int32)
+        else:
+            table = params["tables"]
+            sp = user if s == b else torch.randint(
+                0, min(small_cfg.vocab_sizes), (s, r), generator=gen,
+                device=dev)
+            ids = rec.to_global_ids(small_cfg, sp).to(torch.int32)
+        d = table.shape[1]
+        seg = torch.arange(s, device=dev, dtype=torch.int32
+                           ).repeat_interleave(r)
+        lengths = torch.full((s,), r, device=dev, dtype=torch.int64)
+        inputs = {"rows": table[ids.long()].reshape(s * r, d)}
+        if params is not None:   # the deepfm forward's [B*F, 1 + 2d] rows
+            emb = inputs["rows"].view(s, r, d)
+            inputs["rows 1+2d"] = torch.cat(
+                [params["fm"]["w1"][ids.long()], emb, emb * emb],
+                -1).reshape(s * r, 1 + 2 * d)
+            del emb
+        cases = {"bag": (lambda: sr.embedding_bag(table, ids),
+                         lambda: sr.embedding_bag_plain(table, ids),
+                         lambda: F.embedding_bag(ids, table, mode="sum"),
+                         "F.embedding_bag", d)}
+        for mode, x in inputs.items():
+            cases[mode] = (
+                lambda x=x: sr.segment_sum_sorted(x, seg, s, r),
+                lambda x=x: sr.segment_sum_sorted_plain(x, seg, s, r),
+                lambda x=x: torch.segment_reduce(x, "sum", lengths=lengths),
+                "torch.segment_reduce", x.shape[1])
+        for mode, (fn, plain_fn, lib, lib_name, width) in cases.items():
+            key = f"{name} {mode}"
+            want_out = plain_fn()
+            e = check_close(f"segment kernel {key}", fn(), want_out,
+                            **SEG_TOL["fp32"])
+            e_lib = check_close(f"library {lib_name} {key}", lib(),
+                                want_out, **SEG_TOL["fp32"])
+            del want_out
+            served_errs[key] = e
+            errs["segment_sum_sorted"] = max(errs["segment_sum_sorted"], e)
+            bound, by = seg_bound_ms(s, r, width, 4, s * r)
+            iters = 20 if s * r * width > 1e7 else 200
+            dev_ms = kernel_device_ms(fn, iters, "segment_sum_kernel")
+            ev = event_time(fn, iters)
+            rows[key] = dict(
+                name="embedding_bag" if mode == "bag"
+                else "segment_sum_sorted", shape=[s, r, width],
+                ms=ev if dev_ms is None else dev_ms, event_ms=ev,
+                ms_from="cuda events" if dev_ms is None else "cupti trace",
+                plain_ms=event_time(plain_fn, max(iters // 10, 2)),
+                library_ms=event_time(lib, iters), library=lib_name,
+                library_err=e_lib, bound_ms=bound, bound_by=by)
+            log(f"phase recsys times: {key}: {json.dumps(rows[key])}")
+        del inputs, table, ids, cases
+        gc.collect()
+    log(f"phase recsys: kernel == plain at the served shapes (fp32 "
+        f"{SEG_TOL['fp32']}): max abs err {json.dumps(served_errs)}")
+
+    # ---- end to end: the routing batch and each ranker's forward --------
+    def route_batch():
+        scores = rec.retrieval_scores(small, small_cfg, {"sparse": user},
+                                      cand)
+        return session.route(torch.topk(scores, k, dim=1).values)
+
+    e2e = {f"route B={b} C={c}": dict(ms=sync_time(route_batch, 5),
+                                      device=device_breakdown(route_batch,
+                                                              3))}
+    vocab = torch.as_tensor(large_cfg.vocab_sizes, device=dev)
+    for shape, n in (("serve_p99", b), ("serve_bulk", RECSYS["bulk"])):
+        batches = {small_cfg.name: {"sparse": torch.randint(
+            0, min(small_cfg.vocab_sizes), (n, small_cfg.n_sparse),
+            generator=gen, device=dev)},
+            large_cfg.name: {
+            "dense": torch.randn(n, large_cfg.n_dense, generator=gen,
+                                 device=dev),
+            "sparse": (torch.rand(n, large_cfg.n_sparse, generator=gen,
+                                  device=dev) * vocab).long()}}
+        for cfg, params in ((small_cfg, small), (large_cfg, large)):
+            def fn(params=params, cfg=cfg):
+                return rec.forward(params, cfg, batches[cfg.name])
+            if not torch.isfinite(fn()).all():
+                raise AssertionError(f"{cfg.name} {shape}: non-finite logits")
+            e2e[f"{cfg.name} forward {shape} B={n}"] = dict(
+                ms=sync_time(fn, 5), device=device_breakdown(fn, 3))
+        del batches
+    for name, row in e2e.items():
+        bd = row["device"]
+        log(f"phase recsys e2e: {name}: {row['ms']:.4f} ms; device busy "
+            f"{bd['busy_ms']:.4f} of {bd['wall_ms']:.4f} ms (idle share "
+            f"{bd['idle_share']}); top {json.dumps(bd['top'])}")
+    peak = (torch.cuda.max_memory_allocated(dev) - base_mem) / 2 ** 30
+    log(f"phase recsys: peak device memory of the phase {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    result = dict(launches=launches, wall_s=wall, parity=parity,
+                  kernels=rows, e2e=e2e, served_errs=served_errs,
+                  peak_gib=peak)
+    del small, large, out, session, user, cand
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def kernel_lines(server: dict, times: dict, errs: dict,
-                 tiers: dict) -> list[dict]:
+                 tiers: dict, recsys: dict) -> list[dict]:
     """One entry per kernel for the JSON result line."""
     replaces = {
         "skew_metrics": ("src/repro_torch/kernels/csrc/skew_metrics.cu",
@@ -1134,6 +1527,28 @@ def kernel_lines(server: dict, times: dict, errs: dict,
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             event_ms=r["event_ms"], ms_from=r["ms_from"],
             shape=r["shape"]))
+    # the recsys kernel: one source, two launchers (rows handed over, rows
+    # gathered from the table); launches of both from phase recsys's main
+    # path, times at the reference bench's production shape
+    # (benchmarks/kernel_bench.py:108), rows handed over
+    rk = recsys["kernels"]
+    r, bag = rk["production rows"], rk["production bag"]
+    kernels.append(dict(
+        name="segment_sum_sorted", route="cuda",
+        source="src/repro_torch/kernels/csrc/segment_reduce.cu",
+        replaces="src/repro/kernels/segment_reduce/kernel.py:46",
+        launches=recsys["launches"]["segment_sum_sorted"]
+        + recsys["launches"]["embedding_bag"],
+        max_abs_err=errs["segment_sum_sorted"], ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        library=r["library"], event_ms=r["event_ms"], ms_from=r["ms_from"],
+        shape=r["shape"],
+        launches_by_wrapper={k: recsys["launches"][k] for k in
+                             ("segment_sum_sorted", "embedding_bag")},
+        bag_ms=bag["ms"], bag_plain_ms=bag["plain_ms"],
+        bag_bound_ms=bag["bound_ms"], bag_library_ms=bag["library_ms"],
+        bag_library=bag["library"]))
     return kernels
 
 
@@ -1165,8 +1580,9 @@ def main() -> int:
         return 0
     server = phase_server(dev, errs)
     times = phase_times(dev, server)
+    recsys = phase_recsys(dev, errs)
     tiers = phase_tiers(dev, errs, server)
-    kernels = kernel_lines(server, times, errs, tiers)
+    kernels = kernel_lines(server, times, errs, tiers, recsys)
     log(f"run took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["smi"], flush=True)

@@ -1,1 +1,2 @@
-"""Model configurations of the LLM tiers behind the router."""
+"""Model configurations: the LLM tiers behind the router (yi-6b,
+internlm2-20b) and the recsys rankers (deepfm, dcn-v2)."""

@@ -1,0 +1,2 @@
+"""Runnable examples of the port (``python -m repro_torch.examples.<name>``);
+importing them runs nothing."""

@@ -1,7 +1,7 @@
 """Build, load and count the port's CUDA kernels.
 
-Route (b) of the port's kernel recipe: each ``csrc/*.cu`` file exports a
-plain C launcher and is compiled by ``nvcc`` for ``sm_90a`` into its own
+Route (b) of the port's kernel recipe: each ``csrc/*.cu`` file exports
+plain C launchers and is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library, loaded with :mod:`ctypes`. Nothing happens at import
 time (the CPU test suite imports every module): the first kernel launch,
 or an explicit :func:`build_all`, compiles every source at once — one
@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
-#: library name -> (source file, launcher symbol, launcher argtypes)
+#: launcher name -> (source file, launcher symbol, launcher argtypes); a
+#: source with several launchers is built once
 SOURCES = {
     "skew_metrics": ("skew_metrics.cu", "skew_metrics_launch",
                      [_P, _P, _P, _I, _I, _F, _P]),
@@ -43,15 +44,20 @@ SOURCES = {
                         [_P] * 4 + [_I] * 6 + [_LL] * 9 + [_F, _P]),
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
                          [_P] * 4 + [_I] * 7 + [_LL] * 8 + [_F, _P]),
+    "segment_sum_sorted": ("segment_reduce.cu", "segment_sum_sorted_launch",
+                           [_P, _P, _P, _LL, _I, _I, _I, _P]),
+    "embedding_bag": ("segment_reduce.cu", "embedding_bag_launch",
+                      [_P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P]),
 }
 
 #: Launches per kernel wrapper: each wrapper adds one where it launches
 #: its kernel and nowhere else (CPU tensors take the plain version and
 #: do not count).
 LAUNCHES = {"skew_metrics": 0, "triple_score_batched": 0, "triple_score": 0,
-            "flash_attention": 0, "decode_attention": 0}
+            "flash_attention": 0, "decode_attention": 0,
+            "segment_sum_sorted": 0, "embedding_bag": 0}
 
-#: nvcc/ptxas output of the last build, per library (registers, spills).
+#: nvcc/ptxas output of the last build, per source stem (registers, spills).
 BUILD_LOG: dict[str, str] = {}
 
 _lock = threading.Lock()
@@ -77,46 +83,47 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(src: str) -> Path:
     """Named by a hash of the source, the shared headers and the flags."""
-    parts = [(CSRC / SOURCES[name][0]).read_bytes()]
+    parts = [(CSRC / src).read_bytes()]
     parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(b"".join(parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    return BUILD_DIR / f"lib{Path(src).stem}-{digest[:12]}.so"
 
 
 def build_all() -> float:
     """Compile every source that has no up-to-date library, one ``nvcc``
-    per source in parallel; load them all. Returns the seconds spent."""
+    per source in parallel; load every launcher. Returns the seconds
+    spent."""
     t0 = time.perf_counter()
     with _lock:
-        if len(_libs) == len(SOURCES):
+        if len(_launchers) == len(SOURCES):
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
-        for name, (src, _, _) in SOURCES.items():
-            out = _lib_path(name)
+        for src in sorted({src for src, _, _ in SOURCES.values()}):
+            out = _lib_path(src)
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-            procs[name] = (subprocess.Popen(
+            procs[src] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)
         failed = []
-        for name, (proc, tmp, out) in procs.items():
+        for src, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
-            BUILD_LOG[name] = log
+            BUILD_LOG[Path(src).stem] = log
             if proc.returncode != 0:
-                failed.append(f"nvcc failed for {SOURCES[name][0]} "
+                failed.append(f"nvcc failed for {src} "
                               f"(exit {proc.returncode}):\n{log}")
             else:
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("\n".join(failed))
-        for name, (_, symbol, argtypes) in SOURCES.items():
-            lib = ctypes.CDLL(str(_lib_path(name)))
+        for name, (src, symbol, argtypes) in SOURCES.items():
+            lib = ctypes.CDLL(str(_lib_path(src)))
             fn = getattr(lib, symbol)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             lib.kernel_error_string.argtypes = [ctypes.c_int]

@@ -6,7 +6,7 @@ on a CPU-only host); on the GPU host run
 
 Imports no JAX, so it runs where only the port is installed. Tolerances:
 skew metrics atol 1e-5 + rtol 1e-5 with cumulative-k exact; the scorer
-1e-5 at Dt=110; attention 1e-5 in fp32 (the reference's bar,
+1e-5 at Dt=110; attention and the segment sums 1e-5 in fp32 (the reference's bar,
 tests/test_kernels.py) and one bf16 ulp of the output in bf16. The
 attention kernels and their plain versions both do fp32 math, so in
 bf16 they differ only where a sum taken in another order rounds to a
@@ -27,8 +27,12 @@ from repro_torch.kernels.decode_attention import kernel as dk
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.segment_reduce import kernel as sr
+from repro_torch.kernels.segment_reduce import ops as seg_ops
+from repro_torch.kernels.segment_reduce import ref as seg_ref
 from repro_torch.kernels.skew_metrics import kernel as sk
 from repro_torch.kernels.triple_score import kernel as ts
+from repro_torch.models import recsys as rec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import LMConfig
 from repro_torch.retrieval import scorer as sc
@@ -236,3 +240,158 @@ def _to_cpu(tree):
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
     return tree.cpu()
+
+
+SEG_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+           torch.bfloat16: dict(atol=1e-3, rtol=2 ** -7)}
+
+
+def _sorted_segments(gen, s: int, r: int, dev, pads: bool):
+    """``r`` rows per segment; with ``pads`` ~30% of rows and all of
+    segment 0 are -1."""
+    seg = torch.arange(s, device=dev, dtype=torch.int32).repeat_interleave(r)
+    if pads:
+        drop = torch.rand(s * r, generator=gen, device=dev) < 0.3
+        seg = torch.where(drop, -1, seg)
+        seg[:r] = -1
+    return seg.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s,r,d", [(8, 4, 16), (16, 8, 32), (32, 2, 64),
+                                   (8, 4, 1), (64, 39, 10), (64, 39, 21),
+                                   (64, 1, 128), (512, 39, 10),
+                                   (100, 16, 128), (3, 5, 256)])
+def test_segment_sum_kernel_matches_plain(cuda, s, r, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s * r + d)
+    for pads, offset in ((False, 0), (True, 0), (True, 1)):
+        # offset 1: rows start 4 (fp32) or 2 (bf16) bytes past an aligned
+        # address, so the kernel must take its narrow loads
+        flat = _randn(gen, (s * r * d + offset,), dtype, cuda)
+        rows = flat[offset:].view(s * r, d)
+        seg = _sorted_segments(gen, s, r, cuda, pads)
+        before = cuda_build.LAUNCHES["segment_sum_sorted"]
+        got = sr.segment_sum_sorted(rows, seg, s, r)
+        assert cuda_build.LAUNCHES["segment_sum_sorted"] == before + 1
+        assert got.dtype == dtype
+        torch.testing.assert_close(
+            got, sr.segment_sum_sorted_plain(rows, seg, s, r),
+            **SEG_TOL[dtype])
+        torch.testing.assert_close(
+            got.float(), seg_ref.segment_sum_sorted_ref(rows.float(), seg, s),
+            **SEG_TOL[dtype])
+        if pads:
+            assert not got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("b,nnz,d", [(8, 5, 1), (512, 39, 10), (64, 26, 16),
+                                     (256, 16, 128), (4, 3, 21)])
+def test_embedding_bag_kernel_matches_plain(cuda, b, nnz, d, combiner,
+                                            dtype):
+    gen = torch.Generator(device=cuda).manual_seed(b + nnz + d)
+    for offset in (0, 1):
+        flat = _randn(gen, (1000 * d + offset,), dtype, cuda)
+        table = flat[offset:].view(1000, d)
+        ids = torch.randint(-1, 1000, (b, nnz), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        ids[1] = -1                                  # an all-pad bag
+        before = cuda_build.LAUNCHES["embedding_bag"]
+        got = seg_ops.embedding_bag_fused(table, ids, b, combiner)
+        assert cuda_build.LAUNCHES["embedding_bag"] == before + 1
+        want = seg_ops.embedding_bag_fused(table, ids, b, combiner,
+                                           use_kernels=False)
+        assert cuda_build.LAUNCHES["embedding_bag"] == before + 1
+        torch.testing.assert_close(got, want, **SEG_TOL[dtype])
+        assert not got[1].any()
+
+
+RECSYS_TINY = {
+    "deepfm": rec.RecsysConfig(
+        name="deepfm-tiny", model="deepfm", n_dense=0, n_sparse=39,
+        embed_dim=10, vocab_sizes=(300,) * 39, deep_mlp=(64, 32),
+        interaction="fm"),
+    "dcn_v2": rec.RecsysConfig(
+        name="dcn-tiny", model="dcn_v2", n_dense=13, n_sparse=26,
+        embed_dim=16, vocab_sizes=(200,) * 26, deep_mlp=(64, 32),
+        n_cross_layers=3, interaction="cross"),
+}
+
+
+def test_recsys_path_launches_the_segment_kernel(cuda):
+    """One gather-reduce launch per ``user_embedding`` (deepfm, dcn_v2),
+    one segment-sum launch per deepfm ``forward``, none in dcn_v2's; the
+    results match the plain segment sums on the card and the CPU run of
+    the same weights."""
+    rng = np.random.default_rng(0)
+    for model, fwd_launches in (("deepfm", 1), ("dcn_v2", 0)):
+        cfg = RECSYS_TINY[model]
+        params = rec.init_params(0, cfg, cuda)
+        batch = {"sparse": torch.as_tensor(
+            rng.integers(0, 300 if model == "deepfm" else 200,
+                         (96, cfg.n_sparse)), device=cuda)}
+        if cfg.n_dense:
+            batch["dense"] = torch.randn(96, cfg.n_dense, device=cuda)
+        cuda_build.reset_launches()
+        u = rec.user_embedding(params, cfg, batch)
+        assert cuda_build.LAUNCHES["embedding_bag"] == 1
+        assert cuda_build.LAUNCHES["segment_sum_sorted"] == 0
+        logits = rec.forward(params, cfg, batch)
+        assert cuda_build.LAUNCHES["segment_sum_sorted"] == fwd_launches
+        assert cuda_build.LAUNCHES["embedding_bag"] == 1
+        cand = torch.arange(0, cfg.padded_vocab, 7, device=cuda)
+        scores = rec.retrieval_scores(params, cfg, batch, cand)
+        assert cuda_build.LAUNCHES["embedding_bag"] == 2
+        before = dict(cuda_build.LAUNCHES)
+        torch.testing.assert_close(
+            u, rec.user_embedding(params, cfg, batch, use_kernels=False),
+            atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(
+            logits, rec.forward(params, cfg, batch, use_kernels=False),
+            atol=1e-5, rtol=1e-5)
+        assert cuda_build.LAUNCHES == before
+        cpu_params = _to_cpu(params)
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        torch.testing.assert_close(
+            scores.cpu(), rec.retrieval_scores(cpu_params, cfg, cpu_batch,
+                                               cand.cpu()),
+            atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(
+            logits.cpu(), rec.forward(cpu_params, cfg, cpu_batch),
+            atol=1e-4, rtol=1e-5)
+
+
+def test_segment_kernel_raises_rather_than_falls_back(cuda):
+    """N != S*r, a dtype the kernel does not take, and a CPU/CUDA mix
+    raise on the card, and nothing is launched."""
+    rows = torch.randn(12, 8, device=cuda)
+    seg = torch.arange(4, device=cuda, dtype=torch.int32).repeat_interleave(3)
+    table = torch.randn(50, 8, device=cuda)
+    ids = torch.randint(-1, 50, (4, 3), device=cuda, dtype=torch.int32)
+    before = dict(cuda_build.LAUNCHES)
+    bad_segment_sum = [
+        (rows, seg, 4, 4),                               # N != S*r
+        (rows, seg, 5, 3),
+        (rows.double(), seg, 4, 3),                      # dtype
+        (rows.half(), seg, 4, 3),
+        (rows, seg.long(), 4, 3),                        # seg_ids dtype
+        (rows, seg.cpu(), 4, 3),                         # mixed devices
+        (rows.cpu(), seg, 4, 3),
+        (rows.t().contiguous().t(), seg, 4, 3),          # not contiguous
+    ]
+    for args in bad_segment_sum:
+        with pytest.raises((ValueError, TypeError)):
+            sr.segment_sum_sorted(*args)
+    bad_bag = [
+        (table.double(), ids), (table.half(), ids),      # dtype
+        (table, ids.long()),                             # ids dtype
+        (table, ids.cpu()), (table.cpu(), ids),          # mixed devices
+        (table, ids[0]),                                 # ids not [S, r]
+    ]
+    for t, i in bad_bag:
+        with pytest.raises((ValueError, TypeError)):
+            sr.embedding_bag(t, i)
+    assert cuda_build.LAUNCHES == before
