@@ -52,6 +52,7 @@ line before it lists the kernels as JSON, and the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1143,12 +1144,29 @@ def _seg_rows(gen, s: int, r: int, d: int, dtype, dev, pads: bool,
     return rows, seg
 
 
+@contextlib.contextmanager
+def plain_segment_sums():
+    """The segment kernel's two wrappers swapped for their plain PyTorch
+    versions on any device, for the run that holds the recsys path against
+    the same path without the kernel."""
+    from repro_torch.kernels.segment_reduce import kernel as sr
+    saved = sr.segment_sum_sorted, sr.embedding_bag
+    sr.segment_sum_sorted = (lambda rows, seg, s, r, seg_tile=8:
+                             sr.segment_sum_sorted_plain(rows, seg, s, r))
+    sr.embedding_bag = sr.embedding_bag_plain
+    try:
+        yield
+    finally:
+        sr.segment_sum_sorted, sr.embedding_bag = saved
+
+
 def check_segment_kernels(dev, errs: dict) -> None:
     """segment_sum_sorted and embedding_bag vs their plain versions: the
     reference test's shapes (tests/test_kernels.py:78), D in (1, 10, 21,
     128) at r in (1, 39), pad rows, rows and tables that start one element
     past an aligned address (narrow loads), fp32 and bf16; the bag with -1
-    pads and an all-pad bag, sum and mean."""
+    pads, an all-pad bag and a bag with an id past the table (NaN, as the
+    reference's gather makes it), sum and mean."""
     import torch
     from repro_torch.kernels.segment_reduce import kernel as sr
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -1175,14 +1193,20 @@ def check_segment_kernels(dev, errs: dict) -> None:
                 ids = torch.randint(-1, 5000, (b, nnz), generator=gen,
                                     device=dev, dtype=torch.int32)
                 ids[1] = -1
+                ids[2, 0] = 5000                 # past the table: bag NaN
                 for mean in (False, True):
                     got = sr.embedding_bag(table, ids, mean)
+                    want = sr.embedding_bag_plain(table, ids, mean)
                     if got[1].any():
                         raise AssertionError("an all-pad bag is not 0")
+                    if not (got[2].isnan().all() and want[2].isnan().all()):
+                        raise AssertionError("a bag with an id past the "
+                                             "table is not NaN")
+                    rest = torch.arange(b, device=dev) != 2
                     e = check_close(
                         f"embedding_bag B={b} nnz={nnz} D={d} mean={mean} "
-                        f"offset={offset} {tname}", got,
-                        sr.embedding_bag_plain(table, ids, mean), **tol)
+                        f"offset={offset} {tname}", got[rest], want[rest],
+                        **tol)
                     worst[tname] = max(worst[tname], e)
     errs["segment_sum_sorted"] = worst["fp32"]
     log(f"phase kernels: segment_sum_sorted / embedding_bag == plain at "
@@ -1315,10 +1339,11 @@ def phase_recsys(dev, errs: dict) -> dict:
 
     # ---- the same path with the plain segment sums -----------------------
     before = dict(cuda_build.LAUNCHES)
-    plain = example.main(**run, use_kernels=False)
+    with plain_segment_sums():
+        plain = example.main(**run)
     if any(cuda_build.LAUNCHES[name] != before[name]
            for name in ("embedding_bag", "segment_sum_sorted")):
-        raise AssertionError("use_kernels=False launched a segment kernel")
+        raise AssertionError("the plain run launched a segment kernel")
     check_close("recsys scores_desc vs plain", out["scores_desc"],
                 plain["scores_desc"], **E2E_TOL)
     if abs(plain["theta"] - theta) > E2E_TOL["atol"] + \
@@ -1338,8 +1363,8 @@ def phase_recsys(dev, errs: dict) -> dict:
     user_fields, cand_ids, dense, sparse = out["requests"]
     r0, r1 = out["rows"][0], out["rows"][1]
     user0 = torch.as_tensor(user_fields[r0], device=dev)
-    want0 = rec.forward(small, small_cfg, {"sparse": user0},
-                        use_kernels=False)
+    with plain_segment_sums():
+        want0 = rec.forward(small, small_cfg, {"sparse": user0})
     bound0 = deepfm_logit_bound(small, small_cfg, user0,
                                 want0).cpu().numpy()
     want0 = want0.cpu().numpy()
@@ -1349,8 +1374,8 @@ def phase_recsys(dev, errs: dict) -> dict:
                              f"max diff {diff0.max()}, bound at that row "
                              f"{bound0[diff0.argmax()]}")
     want1 = rec.forward(large, large_cfg, {"dense": dense[r1],
-                                           "sparse": sparse[r1]},
-                        use_kernels=False).cpu().numpy()
+                                           "sparse": sparse[r1]}
+                        ).cpu().numpy()
     if not np.array_equal(logits[r1], want1):
         raise AssertionError("dcn-v2 logits differ between two runs of the "
                              "same ops on the same inputs")

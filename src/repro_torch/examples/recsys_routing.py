@@ -61,7 +61,7 @@ def main(device: DeviceLike = None,
          large_cfg: rec.RecsysConfig = LARGE_CFG,
          n_req: int = 64, n_cand: int = 100, top_k: int = 100,
          params: Optional[tuple] = None, seed: int = 0,
-         use_kernels: bool = True, verbose: bool = True) -> dict:
+         verbose: bool = True) -> dict:
     """Score, calibrate, route and serve ``n_req`` requests against
     ``n_cand`` candidates. ``params``: (small, large) ranker weights, else
     made from ``seed`` on the device. Returns every intermediate (the
@@ -77,8 +77,7 @@ def main(device: DeviceLike = None,
     user = torch.as_tensor(user_fields, device=dev)
 
     scores = rec.retrieval_scores(small, small_cfg, {"sparse": user},
-                                  torch.as_tensor(cand_ids, device=dev),
-                                  use_kernels=use_kernels)
+                                  torch.as_tensor(cand_ids, device=dev))
     k = min(top_k, n_cand)
     scores_desc = torch.topk(scores, k, dim=1).values       # descending
     theta = calibrate_threshold(scores_desc, target_large_ratio=BUDGET,
@@ -96,13 +95,11 @@ def main(device: DeviceLike = None,
     if len(rows[0]):
         idx = torch.as_tensor(rows[0], device=dev)
         logits[rows[0]] = to_numpy(rec.forward(
-            small, small_cfg, {"sparse": user[idx]},
-            use_kernels=use_kernels))
+            small, small_cfg, {"sparse": user[idx]}))
     if len(rows[1]):
         logits[rows[1]] = to_numpy(rec.forward(
             large, large_cfg, {"dense": dense[rows[1]],
-                               "sparse": sparse[rows[1]]},
-            use_kernels=use_kernels))
+                               "sparse": sparse[rows[1]]}))
 
     ent = res.difficulty  # metric="entropy": difficulty IS score-entropy
     out = dict(theta=theta, tiers=res.tiers, difficulty=ent,

@@ -5,9 +5,10 @@
 //     segment s sums the rows of its window [s*r, (s+1)*r) whose seg_id is
 //     s. Pad rows (seg_id = -1) are dropped.
 //   embedding_bag_launch: table [V, D], ids [S*r] -> out [S, D]; bag s sums
-//     table rows ids[s*r + j] for the ids in [0, V) (-1 pads skipped; an id
-//     past the table is skipped too rather than read), and with `mean`
-//     divides by the number of ids it summed, clamped to 1.
+//     table rows ids[s*r + j] for its ids >= 0 (-1 pads skipped), and with
+//     `mean` divides by the number of those ids, clamped to 1. An id past
+//     the table is not read: it counts as a row of NaN, as the reference's
+//     gather (jnp.take, fill mode) makes it, so its bag comes out NaN.
 //
 // fp32 or bf16 rows in and out, fp32 accumulation inside.
 //
@@ -38,6 +39,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <climits>
 #include <cstdint>
@@ -91,7 +93,13 @@ segment_sum_kernel(const T* __restrict__ src, const int* __restrict__ idx,
       const int id = __ldg(ids + j);
       long long row;
       if (GATHER) {
-        if (id < 0 || id >= n_rows) continue;
+        if (id < 0) continue;
+        if (id >= n_rows) {
+          ++count;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[e] = CUDART_NAN_F;
+          continue;
+        }
         row = id;
       } else {
         if (id != s) continue;

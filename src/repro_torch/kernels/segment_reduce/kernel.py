@@ -64,14 +64,23 @@ def segment_sum_sorted_plain(rows: torch.Tensor, seg_ids: torch.Tensor,
     return torch.where(own[..., None], x, 0).sum(1).to(rows.dtype)
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` by the reference's gather (``jnp.take``, fill mode):
+    an id past the table gives a row of NaN; ids below 0 read row 0, for
+    the caller to mask."""
+    _same_device("ids", ids, table.device)
+    inside = ids < table.shape[0]
+    rows = table[torch.where(inside, ids, 0).clamp(min=0).long()]
+    return torch.where(inside[..., None], rows, float("nan"))
+
+
 def embedding_bag_plain(table: torch.Tensor, ids: torch.Tensor,
                         mean: bool = False) -> torch.Tensor:
     """The gathering launcher's function in plain PyTorch: ids ``[S, r]``
-    (``-1`` pads; ids past the table are skipped as in the kernel) ->
-    ``[S, D]`` sums, or means over the ids summed (at least 1)."""
-    _same_device("ids", ids, table.device)
-    valid = (ids >= 0) & (ids < table.shape[0])
-    rows = _acc(table[torch.where(valid, ids, 0).long()])
+    (``-1`` pads) -> ``[S, D]`` sums, or means over the ids >= 0 (at least
+    1). An id past the table makes its bag NaN, as in the reference."""
+    valid = ids >= 0
+    rows = _acc(take_rows(table, ids))
     out = torch.where(valid[..., None], rows, 0).sum(1)
     if mean:
         out = out / valid.sum(1, keepdim=True).clamp(min=1).to(out.dtype)
@@ -120,7 +129,8 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   mean: bool = False) -> torch.Tensor:
     """table ``[V, D]`` fp32/bf16, ids ``[S, r]`` int32 (``-1`` pads) ->
     ``[S, D]`` in ``table.dtype``: each bag's rows gathered and summed in
-    the kernel, divided by the count of ids summed with ``mean``."""
+    the kernel, divided by the count of ids >= 0 with ``mean``. An id past
+    the table is not read; its bag is NaN, as in the reference."""
     if ids.dim() != 2:
         raise ValueError(f"ids must be [S, r], got {tuple(ids.shape)}")
     if table.device.type == "cpu":

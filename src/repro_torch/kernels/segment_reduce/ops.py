@@ -2,10 +2,7 @@
 sorted segment sum, and the embedding bag on top of it.
 
 They run where their inputs live: the CUDA kernel for CUDA tensors, the
-kernel's plain PyTorch version for CPU tensors. ``use_kernels=False``
-asks for the plain version on any device by name (it is how a run on
-the card holds the kernel path against the plain one); it is never taken
-on its own.
+kernel's plain PyTorch version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,22 +13,18 @@ from repro_torch.kernels.segment_reduce import kernel, ref
 
 
 def segment_sum_sorted(rows, seg_ids, n_segments, rows_per_seg,
-                       seg_tile: int = 8, use_kernels: bool = True):
+                       seg_tile: int = 8):
     """rows [S*r, D]; seg_ids [S*r] sorted, exactly ``rows_per_seg`` rows
     per segment (pad rows -1, dropped) -> [S, D] sums."""
     rows = torch.as_tensor(rows)
     seg = torch.as_tensor(seg_ids, device=rows.device).reshape(-1).to(
         torch.int32)
-    if not use_kernels:
-        return kernel.segment_sum_sorted_plain(rows, seg, n_segments,
-                                               rows_per_seg)
     return kernel.segment_sum_sorted(rows.contiguous(), seg.contiguous(),
                                      n_segments, rows_per_seg,
                                      seg_tile=seg_tile)
 
 
-def embedding_bag_fused(table, ids, n_bags, combiner: str = "sum",
-                        use_kernels: bool = True):
+def embedding_bag_fused(table, ids, n_bags, combiner: str = "sum"):
     """EmbeddingBag: ids [B, nnz] (-1 pad) -> [B, dim]. The gather and the
     reduce are one kernel launch; ``mean`` divides by the number of
     non-pad ids (at least 1)."""
@@ -44,8 +37,6 @@ def embedding_bag_fused(table, ids, n_bags, combiner: str = "sum",
                          f"{tuple(ids.shape)}")
     ids = ids.to(torch.int32).contiguous()
     mean = combiner == "mean"
-    if not use_kernels:
-        return kernel.embedding_bag_plain(table, ids, mean)
     return kernel.embedding_bag(table.contiguous(), ids, mean)
 
 

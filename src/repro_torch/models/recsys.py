@@ -20,11 +20,9 @@ Each model exposes, as in the reference:
     one user representation dotted against the gathered candidate rows,
     one ``torch.matmul``.
 
-``use_kernels=False`` on the functions that reach the kernel asks for its
-plain PyTorch version on any device (how a run on the card holds the two
-against each other); CPU tensors always take the plain version. The
-training half (``loss``) is not ported yet. The reference's sharding
-annotations are no-ops on one card and are dropped.
+CUDA tensors launch the kernel; CPU tensors take its plain PyTorch
+version. The training half (``loss``) is not ported yet. The reference's
+sharding annotations are no-ops on one card and are dropped.
 """
 
 from __future__ import annotations
@@ -36,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.device import DeviceLike, resolve_device
+from repro_torch.kernels.segment_reduce import kernel as seg_kernel
 from repro_torch.kernels.segment_reduce import ops as seg_ops
 
 # ---------------------------------------------------------------------------
@@ -74,7 +73,6 @@ class RecsysConfig:
     # DIEN only
     seq_len: int = 0
     gru_dim: int = 0
-    scan_unroll: int = 1  # the reference's cost-probe knob; no effect here
     dtype: torch.dtype = torch.float32
     param_dtype: torch.dtype = torch.float32
 
@@ -154,8 +152,7 @@ def _bag_segments(b: int, nnz: int, dev: torch.device) -> torch.Tensor:
 
 def embedding_bag(tables: torch.Tensor, global_ids: torch.Tensor,
                   weights: Optional[torch.Tensor] = None,
-                  combiner: str = "sum",
-                  use_kernels: bool = True) -> torch.Tensor:
+                  combiner: str = "sum") -> torch.Tensor:
     """Multi-hot bag: global_ids [B, nnz] (-1 = pad) -> [B, dim].
 
     == torch nn.EmbeddingBag(mode=combiner). Without ``weights`` one
@@ -168,15 +165,13 @@ def embedding_bag(tables: torch.Tensor, global_ids: torch.Tensor,
     ids = _on(global_ids, tables.device)
     b, nnz = ids.shape
     if weights is None:
-        return seg_ops.embedding_bag_fused(tables, ids, b, combiner,
-                                           use_kernels=use_kernels)
+        return seg_ops.embedding_bag_fused(tables, ids, b, combiner)
     mask = ids >= 0
-    rows = tables[ids.clamp(min=0)]                              # [B,nnz,dim]
+    rows = seg_kernel.take_rows(tables, ids)                     # [B,nnz,dim]
     w = mask.to(rows.dtype) * _on(weights, tables.device, rows.dtype)
     summed = seg_ops.segment_sum_sorted(
         (rows * w[..., None]).reshape(b * nnz, -1),
-        _bag_segments(b, nnz, tables.device), b, nnz,
-        use_kernels=use_kernels)
+        _bag_segments(b, nnz, tables.device), b, nnz)
     if combiner == "sum":
         return summed
     return summed / w.sum(1, keepdim=True).clamp(min=1.0)
@@ -237,8 +232,8 @@ def init_dlrm(gen: Generator, cfg: RecsysConfig,
     }
 
 
-def dlrm_forward(params: dict, cfg: RecsysConfig, batch: Batch,
-                 use_kernels: bool = True) -> torch.Tensor:
+def dlrm_forward(params: dict, cfg: RecsysConfig,
+                 batch: Batch) -> torch.Tensor:
     dev = params["tables"].device
     dense = _on(batch["dense"], dev).to(cfg.dtype)                # [B, 13]
     dense_emb = mlp_apply(params["bot"], dense, len(cfg.bot_mlp), "bot",
@@ -280,8 +275,7 @@ def init_dcn(gen: Generator, cfg: RecsysConfig,
     }
 
 
-def dcn_forward(params: dict, cfg: RecsysConfig, batch: Batch,
-                use_kernels: bool = True) -> torch.Tensor:
+def dcn_forward(params: dict, cfg: RecsysConfig, batch: Batch) -> torch.Tensor:
     dev = params["tables"].device
     emb = embedding_lookup(params["tables"], cfg, batch["sparse"])
     x0 = torch.cat([_on(batch["dense"], dev).to(cfg.dtype),
@@ -315,8 +309,8 @@ def init_deepfm(gen: Generator, cfg: RecsysConfig,
     }
 
 
-def deepfm_forward(params: dict, cfg: RecsysConfig, batch: Batch,
-                   use_kernels: bool = True) -> torch.Tensor:
+def deepfm_forward(params: dict, cfg: RecsysConfig,
+                   batch: Batch) -> torch.Tensor:
     """First order + FM second order + deep tower. The three sums over
     the F fields are one ``segment_sum_sorted`` launch over the rows
     ``[first, v, v*v]`` of every (request, field)."""
@@ -327,8 +321,7 @@ def deepfm_forward(params: dict, cfg: RecsysConfig, batch: Batch,
     emb = params["tables"][gids].to(cfg.dtype)                    # [B,F,d]
     first = params["fm"]["w1"][gids].to(cfg.dtype)                # [B,F,1]
     rows = torch.cat([first, emb, emb * emb], -1).reshape(b * f, 1 + 2 * d)
-    sums = seg_ops.segment_sum_sorted(rows, _bag_segments(b, f, dev), b, f,
-                                      use_kernels=use_kernels)
+    sums = seg_ops.segment_sum_sorted(rows, _bag_segments(b, f, dev), b, f)
     fm1, sum_v, sum_v2 = sums[:, 0], sums[:, 1:1 + d], sums[:, 1 + d:]
     # Second order: 1/2 ((sum v)^2 - sum v^2), summed over embed dim.
     fm2 = 0.5 * torch.sum(sum_v * sum_v - sum_v2, 1)
@@ -431,8 +424,8 @@ def dien_interest(params: dict, cfg: RecsysConfig, target: torch.Tensor,
     return h
 
 
-def dien_forward(params: dict, cfg: RecsysConfig, batch: Batch,
-                 use_kernels: bool = True) -> torch.Tensor:
+def dien_forward(params: dict, cfg: RecsysConfig,
+                 batch: Batch) -> torch.Tensor:
     user, target, hist = _dien_embed(params, cfg, batch)
     interest = dien_interest(params, cfg, target, hist, batch["hist_mask"])
     x = torch.cat([interest, target, user], -1)
@@ -461,17 +454,16 @@ def init_params(gen: Generator, cfg: RecsysConfig,
     return _INIT[cfg.model](gen, cfg, device)
 
 
-def forward(params: dict, cfg: RecsysConfig, batch: Batch,
-            use_kernels: bool = True) -> torch.Tensor:
-    return _FWD[cfg.model](params, cfg, batch, use_kernels=use_kernels)
+def forward(params: dict, cfg: RecsysConfig, batch: Batch) -> torch.Tensor:
+    return _FWD[cfg.model](params, cfg, batch)
 
 
 def loss(params: dict, cfg: RecsysConfig, batch: Batch) -> torch.Tensor:
     return _bce(forward(params, cfg, batch), batch["labels"])
 
 
-def user_embedding(params: dict, cfg: RecsysConfig, batch: Batch,
-                   use_kernels: bool = True) -> torch.Tensor:
+def user_embedding(params: dict, cfg: RecsysConfig,
+                   batch: Batch) -> torch.Tensor:
     """User-side tower representation for retrieval scoring [B, embed_dim].
 
     dcn_v2 / deepfm: the mean of the user's field embeddings, one
@@ -488,18 +480,18 @@ def user_embedding(params: dict, cfg: RecsysConfig, batch: Batch,
         return interest @ params["proj"]["w"][:, : cfg.embed_dim]
     tables = params["tables"]
     gids = to_global_ids(cfg, _on(batch["sparse"], tables.device))
-    return seg_ops.embedding_bag_fused(tables, gids, gids.shape[0], "mean",
-                                       use_kernels=use_kernels).to(cfg.dtype)
+    return seg_ops.embedding_bag_fused(tables, gids, gids.shape[0],
+                                       "mean").to(cfg.dtype)
 
 
 def retrieval_scores(params: dict, cfg: RecsysConfig, batch: Batch,
-                     candidate_ids, use_kernels: bool = True) -> torch.Tensor:
+                     candidate_ids) -> torch.Tensor:
     """Score [B] users against [C] candidate items: one batched matmul.
 
     candidate_ids are GLOBAL rows into the concatenated table; the gathered
     [C, dim] block is the candidate tower.
     """
-    u = user_embedding(params, cfg, batch, use_kernels=use_kernels)  # [B, d]
+    u = user_embedding(params, cfg, batch)                        # [B, d]
     tables = params["tables"]
     cand = tables[_on(candidate_ids, tables.device).long()].to(cfg.dtype)
     d = min(u.shape[-1], cand.shape[-1])

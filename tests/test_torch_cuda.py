@@ -299,14 +299,17 @@ def test_embedding_bag_kernel_matches_plain(cuda, b, nnz, d, combiner,
         ids = torch.randint(-1, 1000, (b, nnz), generator=gen, device=cuda,
                             dtype=torch.int32)
         ids[1] = -1                                  # an all-pad bag
+        ids[2, 0] = 1000                             # past the table
         before = cuda_build.LAUNCHES["embedding_bag"]
         got = seg_ops.embedding_bag_fused(table, ids, b, combiner)
         assert cuda_build.LAUNCHES["embedding_bag"] == before + 1
-        want = seg_ops.embedding_bag_fused(table, ids, b, combiner,
-                                           use_kernels=False)
+        want = sr.embedding_bag_plain(table, ids, combiner == "mean")
         assert cuda_build.LAUNCHES["embedding_bag"] == before + 1
-        torch.testing.assert_close(got, want, **SEG_TOL[dtype])
+        torch.testing.assert_close(got, want, equal_nan=True,
+                                   **SEG_TOL[dtype])
         assert not got[1].any()
+        assert got[2].isnan().all()
+        assert not got[torch.arange(b, device=cuda) != 2].isnan().any()
 
 
 RECSYS_TINY = {
@@ -346,12 +349,17 @@ def test_recsys_path_launches_the_segment_kernel(cuda):
         scores = rec.retrieval_scores(params, cfg, batch, cand)
         assert cuda_build.LAUNCHES["embedding_bag"] == 2
         before = dict(cuda_build.LAUNCHES)
-        torch.testing.assert_close(
-            u, rec.user_embedding(params, cfg, batch, use_kernels=False),
-            atol=1e-5, rtol=1e-5)
-        torch.testing.assert_close(
-            logits, rec.forward(params, cfg, batch, use_kernels=False),
-            atol=1e-5, rtol=1e-5)
+        with pytest.MonkeyPatch.context() as mp:     # the plain segment sums
+            mp.setattr(sr, "segment_sum_sorted",
+                       lambda rows, seg, s, r, seg_tile=8:
+                       sr.segment_sum_sorted_plain(rows, seg, s, r))
+            mp.setattr(sr, "embedding_bag", sr.embedding_bag_plain)
+            torch.testing.assert_close(
+                u, rec.user_embedding(params, cfg, batch),
+                atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(
+                logits, rec.forward(params, cfg, batch),
+                atol=1e-5, rtol=1e-5)
         assert cuda_build.LAUNCHES == before
         cpu_params = _to_cpu(params)
         cpu_batch = {k: v.cpu() for k, v in batch.items()}

@@ -96,6 +96,38 @@ def test_embedding_bag_fused_matches_reference(combiner):
     assert not got[3].any()
 
 
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embedding_bag_id_past_the_table_is_nan(combiner, weighted):
+    """An id past the table is gathered as a row of NaN and counted, as
+    the reference's ``jnp.take`` (fill mode) makes it: its bag is NaN and
+    every other bag is exact. The reference's Pallas wrapper spreads the
+    NaN over its whole ``seg_tile`` (one-hot matmul, NaN * 0), so the
+    oracle here is ``recsys.embedding_bag``."""
+    rng = np.random.default_rng(11)
+    table = rng.normal(0, 1, (30, 5)).astype(np.float32)
+    ids = rng.integers(-1, 30, (6, 4)).astype(np.int32)
+    ids[2, 1] = 30
+    ids[4] = [-1, 45, -1, -1]
+    w = rng.uniform(0.1, 2.0, (6, 4)).astype(np.float32) if weighted \
+        else None
+    got = R.embedding_bag(torch.from_numpy(table), torch.from_numpy(ids),
+                          weights=None if w is None else torch.from_numpy(w),
+                          combiner=combiner)
+    want = RR.embedding_bag(jnp.asarray(table), jnp.asarray(ids),
+                            weights=None if w is None else jnp.asarray(w),
+                            combiner=combiner)
+    assert np.isnan(np.asarray(want)).any(axis=1).tolist() == \
+        [False, False, True, False, True, False]
+    np.testing.assert_array_equal(got.isnan().numpy(), np.isnan(want))
+    close(got, want)                     # NaN where the reference has NaN
+    if not weighted:
+        close(K.embedding_bag_plain(torch.from_numpy(table),
+                                    torch.from_numpy(ids),
+                                    combiner == "mean"), got, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("combiner", ["sum", "mean"])
 def test_embedding_bag_weighted_matches_reference(combiner):
     rng = np.random.default_rng(8)
