@@ -10,7 +10,9 @@ and nothing of the JAX package. Phases, each fatal on failure:
 
 1. device   — the card (``nvidia-smi``), torch/CUDA versions, kernel build.
 2. kernels  — every CUDA kernel against its plain PyTorch version on the
-              card, at the main path's shapes and the edge cases.
+              card, at the main path's shapes and the edge cases (flash
+              at lengths straddling its 64-row tiles; decode with one
+              chunk and with chunks of uneven size).
 3. server   — the main path, through the user's entry points: a session
               built from a ``RouteSpec`` JSON answers request batches at
               the KGQA serving width (Dt=110, H=128) and the paper-scale
@@ -222,9 +224,14 @@ def event_time(fn, iters: int, reps: int = 5, warmup: int = 2) -> float:
 
 
 def kernel_device_ms(fn, iters: int, kernel: str):
-    """Mean device time (ms) of the kernel whose name contains ``kernel``
-    over ``iters`` calls of ``fn``, from the profiler's CUPTI trace; None
-    when the trace holds no device time for it."""
+    """Device time (ms) per call of ``fn`` in the kernels whose names
+    contain ``kernel``, from the profiler's CUPTI trace over ``iters``
+    calls, and how many such kernels ran per call. Per call, not per
+    kernel: a wrapper that launches two kernels (decode's split and
+    combine) is timed for both. Each kernel name's mean time is counted
+    as often per call as it ran (its count over ``iters``, rounded), so
+    an event the trace misses at the edge of the window moves nothing.
+    (None, 0) when the trace holds no device time for them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -233,13 +240,15 @@ def kernel_device_ms(fn, iters: int, kernel: str):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = count = 0
+    ms = per_call = 0
     for e in prof.key_averages():
-        if kernel in e.key:
-            total += getattr(e, "device_time_total", 0) or \
-                getattr(e, "cuda_time_total", 0)
-            count += e.count
-    return total / count / 1e3 if count and total else None
+        total = getattr(e, "device_time_total", 0) or \
+            getattr(e, "cuda_time_total", 0)
+        if kernel in e.key and e.count and total:
+            n = max(1, round(e.count / iters))
+            ms += total / e.count / 1e3 * n
+            per_call += n
+    return (ms, per_call) if per_call else (None, 0)
 
 
 def device_breakdown(fn, reps: int) -> dict:
@@ -296,6 +305,28 @@ def paper_params(gen, dt: int, dq: int, h: int, dev) -> dict:
 
 # -- phases -------------------------------------------------------------------
 
+def kernel_label(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel name: the length-prefixed
+    identifier ending in ``kernel``, its element type and int args."""
+    import re
+    for start in range(len(mangled)):
+        m = re.match(r"\d+", mangled[start:])
+        if not m:
+            continue
+        n, i = int(m.group()), start + m.end()
+        name = mangled[i:i + n]
+        if len(name) == n and name.endswith("kernel"):
+            rest = mangled[i + n:]
+            if not rest.startswith("I"):
+                return name
+            tmpl = rest[1:rest.find("EEv") + 1] if "EEv" in rest else ""
+            args = ["bf16"] if "bfloat16" in tmpl else \
+                ["fp32"] if tmpl.startswith("f") else []
+            args += re.findall(r"L[ib](\d+)E", tmpl)
+            return f"{name}<{', '.join(args)}>"
+    return mangled[:60]
+
+
 def phase_device(dev) -> dict:
     import torch
     from repro_torch.kernels import cuda_build
@@ -313,9 +344,13 @@ def phase_device(dev) -> dict:
     secs = cuda_build.build_all()
     log(f"phase device: kernels built and loaded in {secs:.1f} s")
     for name, text in cuda_build.BUILD_LOG.items():
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+            if "Function properties for" in line:
+                fn = kernel_label(line.rsplit(" ", 1)[-1])
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {fn}: "
+                    f"{line.split(':', 1)[-1].strip()}")
     return {"smi": smi, "build_s": secs}
 
 
@@ -389,20 +424,29 @@ def phase_kernels(dev, errs: dict) -> None:
     check_segment_kernels(dev, errs)
 
 
+# Flash lengths: the tiers' (16, 100, 512, 2048) and those straddling the
+# 64-row / 64-key tiles (1, 63, 65, 127, 129).
+FLASH_LENGTHS = (1, 16, 63, 65, 100, 127, 129, 512, 2048)
+
+
 def check_attention_kernels(dev, errs: dict) -> None:
     """Flash and decode kernels vs their plain versions at the tiers'
     attention shapes: q/k/v as head slices of one fused projection
     (strided views), lengths that are not multiples of a tile, the decode
-    cache as the engine's flat [B, S, KV*Dh] layer viewed per head."""
+    cache as the engine's flat [B, S, KV*Dh] layer viewed per head; decode
+    at B=2 and at B * KV = 64 (the served B=8 for internlm2-20b), where
+    one kv_len takes a single chunk and another chunks of uneven size."""
     import torch
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = {"flash_attention": {}, "decode_attention": {}}
+    plans = {}
     for name, (h, kv, dh) in TIER_HEADS.items():
         for dtype, tname in ((torch.bfloat16, "bf16"),
                              (torch.float32, "fp32")):
-            for s in (16, 100, 512, 2048):
+            for s in FLASH_LENGTHS:
                 b = 1 if s == 2048 else 2   # the plain version is [B,H,S,S]
                 qkv = torch.randn(b, s, h + 2 * kv, dh, generator=gen,
                                   device=dev).to(dtype)
@@ -415,28 +459,42 @@ def check_attention_kernels(dev, errs: dict) -> None:
                 worst["flash_attention"][tname] = max(
                     e, worst["flash_attention"].get(tname, 0.0))
             s = 2048
-            ck = torch.randn(2, s, kv * dh, generator=gen,
-                             device=dev).to(dtype).view(2, s, kv, dh)
-            cv = torch.randn(2, s, kv * dh, generator=gen,
-                             device=dev).to(dtype).view(2, s, kv, dh)
-            q = torch.randn(2, h, dh, generator=gen, device=dev).to(dtype)
-            for kv_len in (1, 17, 1873, s):
-                e = check_close(
-                    f"decode_attention {name} kv_len={kv_len} {tname}",
-                    dk.decode_attention(q, ck, cv, kv_len),
-                    dk.decode_attention_plain(q, ck, cv, kv_len),
-                    **ATTN_TOL[tname])
-                worst["decode_attention"][tname] = max(
-                    e, worst["decode_attention"].get(tname, 0.0))
+            uneven = None
+            for b in (2, 64 // kv):
+                if b > 2:   # the first kv_len whose chunks differ in size
+                    uneven = next(
+                        n for n in range(dk.TILE + 1, s + 1)
+                        if -(-n // dk.TILE) % dk.split_plan(b, kv, n,
+                                                            n_sm)[1])
+                ck = torch.randn(b, s, kv * dh, generator=gen,
+                                 device=dev).to(dtype).view(b, s, kv, dh)
+                cv = torch.randn(b, s, kv * dh, generator=gen,
+                                 device=dev).to(dtype).view(b, s, kv, dh)
+                q = torch.randn(b, h, dh, generator=gen, device=dev).to(dtype)
+                lens = (1, 17, 1873, s) if b == 2 else (dk.TILE, uneven)
+                for kv_len in lens:
+                    plans[f"{name} B={b} kv_len={kv_len}"] = \
+                        dk.split_plan(b, kv, kv_len, n_sm)
+                    e = check_close(
+                        f"decode_attention {name} B={b} kv_len={kv_len} "
+                        f"{tname}",
+                        dk.decode_attention(q, ck, cv, kv_len),
+                        dk.decode_attention_plain(q, ck, cv, kv_len),
+                        **ATTN_TOL[tname])
+                    worst["decode_attention"][tname] = max(
+                        e, worst["decode_attention"].get(tname, 0.0))
             del qkv, q, k, v, ck, cv
     for kernel, w in worst.items():
         errs[kernel] = max(w.values())
         log(f"phase kernels: {kernel} == plain at (H, KV, Dh) in "
             f"{list(TIER_HEADS.values())}, "
-            + ("S in (16, 100, 512, 2048)" if kernel == "flash_attention"
-               else "S=2048, kv_len in (1, 17, 1873, 2048)")
+            + (f"S in {FLASH_LENGTHS}" if kernel == "flash_attention"
+               else "S=2048, B=2 kv_len in (1, 17, 1873, 2048), B*KV=64 "
+                    "kv_len one tile and uneven chunks")
             + f": max abs err bf16 {w['bf16']:.3g} ({ATTN_TOL['bf16']}), "
               f"fp32 {w['fp32']:.3g} ({ATTN_TOL['fp32']})")
+    log(f"phase kernels: decode (chunks, tiles per chunk) on {n_sm} SMs: "
+        f"{json.dumps(plans)}")
     torch.cuda.synchronize()
 
 
@@ -727,15 +785,20 @@ def score_bound_ms(q: int, n: int, dt: int, h: int, shared: bool
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def kernel_ms(raw, iters: int, kernel: str) -> dict:
-    """The kernel's own device time from the CUPTI trace (``ms``), and
-    the CUDA-event time per launch of ``iters`` back-to-back raw
-    launches (``event_ms``: the issue rate, for microsecond kernels the
-    host's ctypes call rather than the card)."""
+def kernel_ms(raw, iters: int, kernel: str, per_call: int = 1) -> dict:
+    """The kernels' own device time per call from the CUPTI trace
+    (``ms``), and the CUDA-event time per call of ``iters`` back-to-back
+    raw calls (``event_ms``: the issue rate, for microsecond kernels the
+    host's ctypes call rather than the card). Raises unless the trace
+    shows ``per_call`` matching kernels per call."""
     ev = event_time(raw, iters)
-    dev_ms = kernel_device_ms(raw, max(iters, 10), kernel)
+    dev_ms, n = kernel_device_ms(raw, max(iters, 10), kernel)
+    if dev_ms is not None and n != per_call:
+        raise AssertionError(f"{kernel}: {n} kernels per call in the trace, "
+                             f"{per_call} expected")
     return dict(ms=ev if dev_ms is None else dev_ms, event_ms=ev,
-                ms_from="cuda events" if dev_ms is None else "cupti trace")
+                ms_from="cuda events" if dev_ms is None else "cupti trace",
+                kernels_per_call=n)
 
 
 def phase_times(dev, server: dict) -> dict:
@@ -1065,6 +1128,7 @@ def phase_tiers(dev, errs: dict, server: dict) -> dict:
     # plain versions, then timed on the same inputs ----------------------
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, served_errs = {}, {}
     for name, (h, kv, dh) in TIER_HEADS.items():
         b, s, kv_len = 8, 2048, 1873 + MAX_NEW // 2
@@ -1082,7 +1146,7 @@ def phase_tiers(dev, errs: dict, server: dict) -> dict:
         rows[f"flash_attention {name}"] = dict(
             name="flash_attention", shape=[b, s, h, kv, dh],
             **kernel_ms(lambda: fk.flash_attention(q, k, v), 3,
-                        "flash_attention_kernel"),
+                        "flash_attention"),
             plain_ms=event_time(lambda: fk.flash_attention_plain(q, k, v),
                                 1, reps=3, warmup=1),
             library_ms=event_time(lambda: F.scaled_dot_product_attention(
@@ -1104,10 +1168,12 @@ def phase_tiers(dev, errs: dict, server: dict) -> dict:
             errs["decode_attention"] = max(errs["decode_attention"], e)
         mask = (torch.arange(s, device=dev) < kv_len)[None, :]
         bound, by = decode_bound_ms(b, kv_len, h, kv, dh, 2)
+        plan = dk.split_plan(b, kv, kv_len, n_sm)
         rows[f"decode_attention {name}"] = dict(
             name="decode_attention", shape=[b, s, h, kv, dh, kv_len],
+            splits=list(plan),
             **kernel_ms(lambda: dk.decode_attention(qd, ck, cv, kv_len), 50,
-                        "decode_attention_kernel"),
+                        "decode_attention", 1 if plan[0] == 1 else 2),
             plain_ms=event_time(
                 lambda: dk.decode_attention_plain(qd, ck, cv, kv_len), 20),
             library_ms=event_time(lambda: F.scaled_dot_product_attention(
@@ -1448,13 +1514,17 @@ def phase_recsys(dev, errs: dict) -> dict:
             errs["segment_sum_sorted"] = max(errs["segment_sum_sorted"], e)
             bound, by = seg_bound_ms(s, r, width, 4, s * r)
             iters = 20 if s * r * width > 1e7 else 200
-            dev_ms = kernel_device_ms(fn, iters, "segment_sum_kernel")
+            dev_ms, n_k = kernel_device_ms(fn, iters, "segment_sum_kernel")
+            if dev_ms is not None and n_k != 1:
+                raise AssertionError(f"segment kernel {key}: {n_k} kernels "
+                                     f"per call in the trace, 1 expected")
             ev = event_time(fn, iters)
             rows[key] = dict(
                 name="embedding_bag" if mode == "bag"
                 else "segment_sum_sorted", shape=[s, r, width],
                 ms=ev if dev_ms is None else dev_ms, event_ms=ev,
                 ms_from="cuda events" if dev_ms is None else "cupti trace",
+                kernels_per_call=n_k,
                 plain_ms=event_time(plain_fn, max(iters // 10, 2)),
                 library_ms=event_time(lib, iters), library=lib_name,
                 library_err=e_lib, bound_ms=bound, bound_by=by)
@@ -1532,8 +1602,8 @@ def kernel_lines(server: dict, times: dict, errs: dict,
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             call_ms=r["call_ms"], event_ms=r["event_ms"],
-            ms_from=r["ms_from"], shape=r["shape"],
-            launches_by_path={p: c[name] for p, c in
+            ms_from=r["ms_from"], kernels_per_call=r["kernels_per_call"],
+            shape=r["shape"], launches_by_path={p: c[name] for p, c in
                               server["per_path"].items()}))
     # the tiers' kernels: launches from phase tiers' main path, times at
     # the large tier's served shape (B=8, S=2048)
@@ -1551,7 +1621,8 @@ def kernel_lines(server: dict, times: dict, errs: dict,
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             event_ms=r["event_ms"], ms_from=r["ms_from"],
-            shape=r["shape"]))
+            kernels_per_call=r["kernels_per_call"], shape=r["shape"],
+            **({"splits": r["splits"]} if "splits" in r else {})))
     # the recsys kernel: one source, two launchers (rows handed over, rows
     # gathered from the table); launches of both from phase recsys's main
     # path, times at the reference bench's production shape
@@ -1573,7 +1644,8 @@ def kernel_lines(server: dict, times: dict, errs: dict,
                              ("segment_sum_sorted", "embedding_bag")},
         bag_ms=bag["ms"], bag_plain_ms=bag["plain_ms"],
         bag_bound_ms=bag["bound_ms"], bag_library_ms=bag["library_ms"],
-        bag_library=bag["library"]))
+        bag_library=bag["library"],
+        kernels_per_call=r["kernels_per_call"]))
     return kernels
 
 

@@ -1,6 +1,7 @@
 // Helpers shared by the attention kernels (flash_attention.cu,
 // decode_attention.cu): 16-byte loads of a row chunk converted to float,
-// and the store of one float back to the input's element type.
+// the store of one float back to the input's element type, and the PTX
+// wrappers for cp.async copies into shared memory.
 //
 // Every row the kernels read starts on a 16-byte boundary and its length
 // is a whole number of 16-byte chunks; the Python wrappers check both
@@ -67,6 +68,31 @@ template <typename T>
 __device__ __forceinline__ void load_chunk(const T* p, bool valid,
                                            float* out) {
   Chunk<T>::unpack(load_raw(p, valid), out);
+}
+
+// ---- cp.async: 16-byte copies global -> shared, in commit groups ----------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy 16 bytes, or write 16 zero bytes (nothing is read) when !valid;
+// src must be a mapped address either way.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 }  // namespace attn

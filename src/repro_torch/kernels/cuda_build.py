@@ -43,7 +43,7 @@ SOURCES = {
     "flash_attention": ("flash_attention.cu", "flash_attention_launch",
                         [_P] * 4 + [_I] * 6 + [_LL] * 9 + [_F, _P]),
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
-                         [_P] * 4 + [_I] * 7 + [_LL] * 8 + [_F, _P]),
+                         [_P] * 5 + [_I] * 9 + [_LL] * 8 + [_F, _P]),
     "segment_sum_sorted": ("segment_reduce.cu", "segment_sum_sorted_launch",
                            [_P, _P, _P, _LL, _I, _I, _I, _P]),
     "embedding_bag": ("segment_reduce.cu", "embedding_bag_launch",

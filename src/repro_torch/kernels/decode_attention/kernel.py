@@ -3,10 +3,14 @@ per sequence against the KV cache.
 
 Replaces the TPU kernel ``src/repro/kernels/decode_attention/kernel.py``
 (``decode_attention``, body ``_decode_kernel``). The CUDA source is
-``repro_torch/kernels/csrc/decode_attention.cu``: one block per (batch,
-kv head) walking 128-position cache tiles up to ``kv_len``, the G query
-heads of the kv head sharing each tile; online softmax and P·V in fp32
-(bound by bytes; see the source for the design).
+``repro_torch/kernels/csrc/decode_attention.cu``: split-KV — the cache up
+to ``kv_len`` is cut into chunks of whole 128-position tiles
+(:func:`split_plan`), one block per (chunk, kv head, batch) with the G
+query heads of the kv head sharing each tile, each writing an fp32
+partial; a second small kernel combines the partials. Online softmax and
+P·V in fp32 (bound by bytes; see the source for the design). One call of
+:func:`decode_attention` is one launch of the C launcher and counts once,
+whether it runs one kernel (one chunk) or two.
 
 It takes the model's own layout — q ``[B, H, Dh]``, k/v ``[B, S, KV,
 Dh]`` (the engine's flat ``[B, S, KV*Dh]`` cache of one layer, viewed per
@@ -21,6 +25,8 @@ PyTorch version (``ref.decode_ref`` on the same views).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import cuda_build
@@ -29,6 +35,29 @@ from repro_torch.kernels.decode_attention import ref
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GROUP = 16
+TILE = 128            # cache positions per tile (kBK in the source)
+BLOCKS_PER_SM = 2     # the split count aims at this many blocks per SM
+MAX_SPLITS = 1024     # chunks the combine kernel takes (kMaxSplits)
+
+
+def split_plan(b: int, kv: int, kv_len: int,
+               n_sm: int = 132) -> tuple[int, int]:
+    """(chunks, tiles per chunk) for a decode over ``kv_len`` positions.
+
+    The fewest tiles per chunk is one; beyond that, chunks as large as
+    still give ``b * kv * chunks >= BLOCKS_PER_SM * n_sm`` blocks, so
+    every SM gets work and each block reads as much as it can. No chunk
+    is empty, there are at most ``MAX_SPLITS``, and ``kv_len <= TILE``
+    (or a batch that fills the card alone) gives one chunk."""
+    n_tiles = -(-kv_len // TILE)
+    want = -(-BLOCKS_PER_SM * n_sm // max(b * kv, 1))
+    per = max(1, n_tiles // want, -(-n_tiles // MAX_SPLITS))
+    return -(-n_tiles // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -69,10 +98,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, h, dh), dtype=q.dtype, device=dev)
     if b == 0:
         return out
+    splits, per = split_plan(b, kv, kv_len, _sm_count(dev.index or 0))
+    part = (torch.empty(b * h * splits * (dh + 2), dtype=torch.float32,
+                        device=dev) if splits > 1 else None)
     cuda_build.launch(
         "decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, s, h, kv, dh, int(q.dtype == torch.bfloat16),
-        kv_len, *q.stride()[:2], *k.stride()[:3], *v.stride()[:3],
-        dh ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), None if part is None else part.data_ptr(), b, s, h,
+        kv, dh, int(q.dtype == torch.bfloat16), kv_len, splits, per,
+        *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], dh ** -0.5,
+        torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.LAUNCHES["decode_attention"] += 1
     return out

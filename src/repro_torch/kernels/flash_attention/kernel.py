@@ -4,8 +4,10 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py``
 (``flash_attention``, body ``_flash_kernel``). The CUDA source is
 ``repro_torch/kernels/csrc/flash_attention.cu``: one block per (batch,
 head, 64 query rows) walking 64-key tiles through shared memory up to the
-diagonal, with the online softmax and P·V in fp32 on the CUDA cores
-(bound by operations; see the source for the design).
+diagonal, with an fp32 online softmax (bound by operations; see the
+source for the design). bf16 runs on the tensor cores (``mma.sync``,
+fp32 accumulation, P split into two bf16 halves for P·V); fp32 on the
+CUDA cores.
 
 It takes the model's own layout — q ``[B, S, H, Dh]``, k/v ``[B, S, KV,
 Dh]``, any strides with a contiguous last dimension and 16-byte aligned

@@ -161,6 +161,82 @@ def test_decode_kernel_matches_plain(cuda, h, kv, dh, s, kv_lens, dtype):
             decode_ops.decode_ref(q, kt, vt, kv_len), **ATTN_TOL[dtype])
 
 
+# (H, KV, Dh) by GQA group: MHA, internlm2-20b's 48/8, yi-6b's 32/4
+GROUPS = {1: (8, 8, 64), 6: (48, 8, 128), 8: (32, 4, 128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129])
+@pytest.mark.parametrize("group", sorted(GROUPS))
+def test_flash_kernel_at_tile_edges(cuda, group, s, dtype):
+    """Lengths on either side of the 64-row query tiles and 64-key K/V
+    tiles: a partial last tile, a diagonal tile that is also the last,
+    one row."""
+    h, kv, dh = GROUPS[group]
+    gen = torch.Generator(device=cuda).manual_seed(s * group)
+    qkv = _randn(gen, (2, s, h + 2 * kv, dh), dtype, cuda)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+    before = cuda_build.LAUNCHES["flash_attention"]
+    got = fk.flash_attention(q, k, v)
+    assert cuda_build.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(got, fk.flash_attention_plain(q, k, v),
+                               **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("group", sorted(GROUPS))
+def test_flash_kernel_served_length_bf16(cuda, group):
+    """bf16 at the served 2048 bucket, one sequence: 32 query tiles, the
+    longest walking all 32 key tiles through the cp.async ring."""
+    h, kv, dh = GROUPS[group]
+    gen = torch.Generator(device=cuda).manual_seed(group)
+    q = _randn(gen, (1, 2048, h, dh), torch.bfloat16, cuda)
+    k = _randn(gen, (1, 2048, kv, dh), torch.bfloat16, cuda)
+    v = _randn(gen, (1, 2048, kv, dh), torch.bfloat16, cuda)
+    torch.testing.assert_close(fk.flash_attention(q, k, v),
+                               fk.flash_attention_plain(q, k, v),
+                               **ATTN_TOL[torch.bfloat16])
+
+
+def _decode_case(kind: str, kv: int, n_sm: int) -> tuple[int, int, int]:
+    """(B, S, kv_len) whose chunk plan is ``kind``: one chunk, two, or
+    chunks of uneven size (the last holding fewer tiles)."""
+    if kind == "one":
+        return 64 // kv, 300, 100
+    if kind == "two":
+        return 1, 300, 200
+    b, s = 64 // kv, 2048
+    return b, s, next(n for n in range(dk.TILE + 1, s + 1)
+                      if -(-n // dk.TILE) % dk.split_plan(b, kv, n, n_sm)[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["one", "two", "uneven"])
+@pytest.mark.parametrize("group", sorted(GROUPS))
+def test_decode_kernel_chunk_plans(cuda, group, kind, dtype):
+    """One, two and uneven chunks of the cache, and kv_len 1 and S at
+    the same shape; every wrapper call counts one launch, whether it ran
+    the split kernel alone or split and combine."""
+    h, kv, dh = GROUPS[group]
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    b, s, kv_len = _decode_case(kind, kv, n_sm)
+    splits, per = dk.split_plan(b, kv, kv_len, n_sm)
+    n_tiles = -(-kv_len // dk.TILE)
+    assert {"one": splits == 1, "two": splits == 2,
+            "uneven": splits > 1 and n_tiles % per != 0}[kind]
+    gen = torch.Generator(device=cuda).manual_seed(b * s + group)
+    ck = _randn(gen, (b, s, kv * dh), dtype, cuda).view(b, s, kv, dh)
+    cv = _randn(gen, (b, s, kv * dh), dtype, cuda).view(b, s, kv, dh)
+    q = _randn(gen, (b, h, dh), dtype, cuda)
+    for n in (kv_len, 1, s):
+        before = cuda_build.LAUNCHES["decode_attention"]
+        got = dk.decode_attention(q, ck, cv, n)
+        assert cuda_build.LAUNCHES["decode_attention"] == before + 1
+        torch.testing.assert_close(
+            got, dk.decode_attention_plain(q, ck, cv, n), **ATTN_TOL[dtype])
+
+
 def test_attention_kernels_raise_rather_than_fall_back(cuda):
     """A CUDA tensor the kernels cannot take raises, and nothing is
     launched: no plain-version fallback on the card."""
